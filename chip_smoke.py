@@ -2,25 +2,44 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from halo2_tpu_torch/csrc, holds each against
-its plain PyTorch version on the card, proves plonk_api at k=8 on the CPU
-(plain versions) and on the GPU (kernels) and requires equal proof bytes,
-then drives the main path at k=18 — ParamsKZG.new, keygen, create_proof
-(a first and N_STEADY steady runs), verify, and a tampered proof — with
-every kernel's launch count.  Any failure exits non-zero.  The line before the last is a
-JSON object of per-kernel results; the last line is
+Builds the six CUDA kernels from halo2_tpu_torch/csrc and holds each of
+them, and each of their BN254 and Pasta instances, against its plain
+PyTorch version on the card word for word.  Proves on the CPU (plain
+versions) and on the GPU (kernels) and requires equal proof bytes: KZG
+plonk_api at k=8 and IPA/Vesta plonk_api at k=6.  Then it drives three
+main paths, each with the launch counts set to 0 just before it and read
+just after:
+
+  k=18 plonk_api, KZG / SHPLONK  (kernels A, B, C, D)
+  k=20 lookup_heavy, KZG / SHPLONK, on the unbaked stream table (kernel 8)
+  k=14 plonk_api, IPA / Vesta, opening MSMs on the segmented scan (kernel 9)
+
+each with params, keygen, a first and steady proves with their step
+tables, verify, and a tampered proof that must be rejected, then one
+profiled prove (device busy and idle share).  Kernel D is held against its
+plain version at the k=18 table shape, kernel 8 at the k=20 one, and on
+the IPA path every kernel D and kernel 9 call of one more prove is
+recorded and held against its plain version on its own inputs.  At k=20
+one MSM through the unbaked table must equal, as a group element, the same
+MSM through a baked table built for the check.  Any failure exits
+non-zero.
+The line before the last is a JSON object of per-kernel results (time,
+plain version's time, bound, launches); the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-It needs a CUDA device and nvcc, imports nothing of JAX, and exits with
-code 2 and no result when no GPU is visible.
+It needs one CUDA device, nvcc and cuobjdump, imports nothing of JAX or of
+the JAX package, and exits with code 2 and no result when no GPU is
+visible.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -29,11 +48,39 @@ import numpy as np
 
 K_MAIN = 18
 K_CMP = 8
-N_STEADY = 5          # steady proves at K_MAIN, for their spread
+N_STEADY = 3          # steady proves at K_MAIN, for their spread
+K_LOOKUP = 20
+K_IPA = 14
+K_IPA_CMP = 6
+N_STEADY_BIG = 2      # steady proves at K_LOOKUP and K_IPA
+
+# H100 SXM: HBM3 rate (NVIDIA's data sheet); 32-bit integer multiply-adds
+# per clock per SM for compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput table); the clock is read from the card.
+HBM_BYTES_PER_S = 3.35e12
+N_SM = 132
+IMAD_PER_CLK_SM = 64
+
+# The reference's TPU kernels, by file and line in the JAX package.
+REFERENCE = "halo2_tpu"
+# each curve's name in the kernels' SASS function names
+SASS_TAG = {"bn254::G1": "Bn254G1", "pasta::Pallas": "Pallas",
+            "pasta::Vesta": "Vesta"}
+# kernel 9's template arguments <curve, AFFINE, PACKED> per scan mode
+SCAN_SASS = {0: "Lb0ELb0E", 1: "Lb1ELb0E", 2: "Lb1ELb1E"}
 
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str, walls: dict):
+    t0 = time.time()
+    log(f"[phase] {name} ...")
+    yield
+    walls[name] = time.time() - t0
+    log(f"[phase] {name} done in {walls[name]:.2f} s")
 
 
 def main() -> int:
@@ -41,103 +88,125 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    sys.modules.setdefault("jax", None)     # the port must not need JAX
+    # the port must need neither JAX nor the JAX package
+    sys.modules.setdefault("jax", None)
+    sys.modules.setdefault(REFERENCE, None)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from halo2_tpu_torch import _build
-    from halo2_tpu_torch._shared import plonk_api
-    from halo2_tpu_torch.api import create_proof, keygen, verify
-    from halo2_tpu_torch.commit import ParamsKZG
-    from halo2_tpu_torch.curves import BN254_G1
-    from halo2_tpu_torch.fields import BN254_FR
 
+    t_start = time.time()
+    walls: dict = {}
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
     log(smi)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    t0 = time.time()
-    _build.library()
-    log(f"[build] kernels ready in {time.time() - t0:.2f} s (nvcc "
-        f"{'%.2f s' % _build.build_seconds if _build.build_seconds else 'reused'})")
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"max SM clock {clock_mhz:.0f} MHz")
+    with phase("build", walls):
+        _build.library()
+        log(f"[build] nvcc {'%.2f s' % _build.build_seconds if _build.build_seconds else 'reused'}")
+        bound = Bounds(sass_multiplies(_build), clock_mhz)
 
-    results = check_kernels(torch, dev, BN254_FR, BN254_G1)
+    results = {}
+    with phase("kernels A-D, BN254", walls):
+        results.update(check_kernels(torch, dev, bound))
+    with phase("kernels A-D, Pasta instances", walls):
+        check_pasta(torch, dev, bound, results)
+    with phase("kernel 9 on sorted streams", walls):
+        results.update(check_kernel_9(torch, dev))
+    with phase(f"KZG k={K_CMP} CPU == GPU", walls):
+        compare_kzg_cpu_gpu(torch, dev)
+    with phase(f"IPA k={K_IPA_CMP} CPU == GPU", walls):
+        compare_ipa_cpu_gpu(torch, dev)
 
-    # ---- k=8: CPU (plain versions) and GPU (kernels) give one proof
-    F = BN254_FR
-    circuit, inst = plonk_api().plonk_api_instance(F)
-    proofs = {}
-    for where in ("cpu", dev):
-        t0 = time.time()
-        params = ParamsKZG.new(K_CMP, device=where)
-        pk = keygen(F, params, K_CMP, circuit)
-        proof = create_proof(params, pk, [circuit], [inst], random.Random(1))
-        ok = verify(params, pk.vk, proof, [inst])
-        if not ok:
-            raise AssertionError(f"k={K_CMP} proof on {where} did not verify")
-        proofs[str(where)] = proof
-        log(f"[k={K_CMP}] {where}: keygen+prove+verify "
-            f"{time.time() - t0:.2f} s, {len(proof)} proof bytes, verify=True")
-    if proofs["cpu"] != proofs[str(dev)]:
-        raise AssertionError("CPU-plain and GPU-kernel proofs differ")
-    log(f"[k={K_CMP}] CPU-plain and GPU-kernel proof bytes are equal")
+    counts = {}
+    with phase(f"KZG plonk_api k={K_MAIN}", walls):
+        params = run_kzg_plonk_api(torch, dev, counts)
+    with phase(f"kernel D at k={K_MAIN}", walls):
+        results["h2_stream_bucket"].update(check_msm_main(torch, params,
+                                                          bound))
+    del params
+    with phase(f"KZG lookup_heavy k={K_LOOKUP}", walls):
+        params = run_lookup_heavy(torch, dev, counts)
+    with phase(f"kernel 8 at k={K_LOOKUP}, unbaked == baked", walls):
+        results["h2_stream_bucket_windows"].update(
+            check_unbaked_main(torch, params, bound))
+    del params
+    with phase(f"IPA plonk_api k={K_IPA}", walls):
+        params, pk, circuit, inst = run_ipa(torch, dev, counts)
+    with phase(f"kernels D and 9 at the k={K_IPA} prove's calls", walls):
+        check_ipa_main(torch, params, pk, circuit, inst, bound, results)
+    del params, pk
 
-    # ---- the main path at k=18, through the kernels
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    t0 = time.time()
-    params = ParamsKZG.new(K_MAIN, device=dev)
-    torch.cuda.synchronize()
-    t_params = time.time() - t0
-    t0 = time.time()
-    pk = keygen(F, params, K_MAIN, circuit)
-    torch.cuda.synchronize()
-    t_keygen = time.time() - t0
-    log(f"[k={K_MAIN}] ParamsKZG.new {t_params:.2f} s, keygen "
-        f"{t_keygen:.2f} s")
-    steady = []
-    for seed, run in enumerate(["first"] + ["steady"] * N_STEADY, start=1):
-        timings = {}
-        t0 = time.time()
-        proof = create_proof(params, pk, [circuit], [inst],
-                             random.Random(seed), timings=timings)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        if run == "steady":
-            steady.append(wall)
-        steps = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
-        log(f"[k={K_MAIN}] prove ({run}) {wall:.3f} s; steps: {steps}")
-    log(f"[k={K_MAIN}] steady prove over {N_STEADY} runs: median "
-        f"{sorted(steady)[N_STEADY // 2]:.3f} s, min {min(steady):.3f} s, "
-        f"max {max(steady):.3f} s")
-    t0 = time.time()
-    ok = verify(params, pk.vk, proof, [inst])
-    t_verify = time.time() - t0
-    bad = bytearray(proof)
-    bad[len(bad) // 2] ^= 1
-    rejected = not verify(params, pk.vk, bytes(bad), [inst])
-    counts = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[k={K_MAIN}] verify {ok} in {t_verify:.3f} s; tampered proof "
-        f"rejected {rejected}; peak device memory {peak / 2**30:.2f} GiB; "
-        f"launches {counts}")
-    if not ok or not rejected:
-        raise AssertionError("k=18 verification failed")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {counts}")
-
-    profile_prove(torch, params, pk, circuit, inst)
-    results["h2_stream_bucket"].update(check_msm_main(torch, params))
     for name, r in results.items():
-        r["launches"] = counts[name]
+        r["launches"] = sum(c.get(name, 0) for c in counts.values())
+        r["launches_by_path"] = {path: c.get(name, 0)
+                                 for path, c in counts.items()}
+    missing = [k for k in _build.KERNELS if k not in results]
+    if missing:
+        raise AssertionError(f"kernels without a result: {missing}")
+    total = time.time() - t_start
+    log("[walls] " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; whole run {total:.2f} s")
+    log(smi)
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ----------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work
+# ----------------------------------------------------------------------
+
+def sass_multiplies(_build) -> dict:
+    """Integer multiply instructions (IMAD, IMAD.WIDE, IMAD.HI, ...; not the
+    IMAD.MOV / IMAD.IADD / IMAD.SHL moves) of each kernel function in the
+    built library's SASS, from cuobjdump."""
+    cub = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cub, "-sass", _build.lib_path], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn and re.search(r"\bIMAD\b|\bIMAD\.", line) and not re.search(
+                r"IMAD\.(MOV|IADD|SHL)", line):
+            counts[fn] += 1
+    if not counts:
+        raise AssertionError("cuobjdump found no kernel functions")
+    return counts
+
+
+class Bounds:
+    """bound_ms = max(bytes / HBM rate, multiplies / (SMs x rate x clock)),
+    with the multiplies per element taken from the SASS."""
+
+    def __init__(self, mults: dict, clock_mhz: float):
+        self.mults = mults
+        self.rate = N_SM * IMAD_PER_CLK_SM * clock_mhz * 1e6
+
+    def per_elem(self, *parts) -> int:
+        hits = [v for k, v in self.mults.items() if all(p in k for p in parts)]
+        if len(hits) != 1:
+            raise AssertionError(f"SASS function {parts}: {len(hits)} hits")
+        return hits[0]
+
+    def __call__(self, bytes_moved: float, multiplies: float) -> dict:
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = multiplies / self.rate * 1e3
+        return dict(bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=None)
 
 
 # ----------------------------------------------------------------------
@@ -156,6 +225,20 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(torch, fn):
+    """(fn(), its time on the card in ms), one run by CUDA events: for the
+    plain versions, whose single run is both the reference output and
+    the timing."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def max_err(torch, a, b) -> int:
@@ -186,153 +269,485 @@ def random_elems(torch, F, n: int, seed: int, dev):
     return F.to_mont(t)
 
 
-def check_kernels(torch, dev, Fr, G1) -> dict:
+def _entry(name, source, line, err, **kw):
+    return dict(name=name, route="cuda", source=f"halo2_tpu_torch/csrc/{source}",
+                replaces=f"{REFERENCE}/{line}", max_abs_err=err, **kw)
+
+
+def check_field(torch, dev, F, n: int, seed: int, bound, tag: str):
+    """Kernel A for field F at n elements: mul / add / sub equal to plain;
+    the mul timed."""
+    from halo2_tpu_torch.fields import cuda_ops
+    a = random_elems(torch, F, n, seed, dev)
+    b = random_elems(torch, F, n, seed + 10, dev).flip(0)
+    err, plain = 0, None
+    for mode, name in ((cuda_ops.MUL, "mul"), (cuda_ops.ADD, "add"),
+                       (cuda_ops.SUB, "sub")):
+        want, t = timed(torch, lambda: cuda_ops.binop_plain(F, mode, a, b))
+        plain = t if plain is None else plain
+        err = max(err, expect_equal(
+            torch, f"field {name} {F.name}", cuda_ops.binop(F, mode, a, b),
+            want))
+    ms = cuda_ms(torch, lambda: cuda_ops.binop(F, cuda_ops.MUL, a, b), 10)
+    b_ = bound(3 * 32 * n, n * bound.per_elem(
+        "k_field_binop", tag, "Li0E"))
+    log(f"[kernel A] {F.name} mul/add/sub at 2^{n.bit_length() - 1}: equal; "
+        f"mul {ms:.3f} ms vs plain {plain:.1f} ms; bound {b_['bound_ms']:.4f} "
+        f"ms ({b_['bound_by']})")
+    return err, ms, plain, b_
+
+
+def check_ec(torch, dev, G, m: int, seed: int, bound, tag: str) -> dict:
+    """Kernel B for curve G at m points: random, identities, P+P, P+(-P)."""
     from halo2_tpu_torch.curves import cuda_ec
-    from halo2_tpu_torch.fields import BN254_FQ, cuda_ops
-    from halo2_tpu_torch.msm import naive_msm
-    from halo2_tpu_torch.msm.stream_msm import (StreamMSM, stream_bucket,
-                                                stream_bucket_plain,
-                                                stream_keys)
+    P = G.generator_mul(random_elems(torch, G.Fr, m, seed, dev))
+    Q = G.generator_mul(random_elems(torch, G.Fr, m, seed + 1, dev))
+    Q[: m // 4] = P[: m // 4]                      # P + P
+    Q[m // 4: m // 2] = G.neg(P[m // 4: m // 2])   # P + (-P)
+    P[-64:] = G.identity((64,), dev)               # identities
+    Qa = G.batch_normalize(Q)
+    inf = G.is_identity(Q)
+    inf[1::7] = True
+    out = {}
+    for op, line, kernel, plain_fn, io in (
+            ("add", 181, lambda: cuda_ec.ec_add(G, P, Q),
+             lambda: cuda_ec.ec_add_plain(G, P, Q), 3 * 96),
+            ("madd", 222, lambda: cuda_ec.ec_madd(G, P, Qa, inf),
+             lambda: cuda_ec.ec_madd_plain(G, P, Qa, inf), 96 + 64 + 1 + 96),
+            ("double", 251, lambda: cuda_ec.ec_double(G, P),
+             lambda: cuda_ec.ec_double_plain(G, P), 2 * 96)):
+        want, plain = timed(torch, plain_fn)
+        err = expect_equal(torch, f"ec {op} {G.name}", kernel(), want)
+        ms = cuda_ms(torch, kernel, 10)
+        fn = {"add": "k_ec_addI", "madd": "k_ec_maddI",
+              "double": "k_ec_doubleI"}[op]
+        b_ = bound(io * m, m * bound.per_elem(fn, tag))
+        log(f"[kernel B] {G.name} ec {op} at 2^{m.bit_length() - 1}: equal; "
+            f"{ms:.3f} ms vs plain {plain:.1f} ms; bound "
+            f"{b_['bound_ms']:.4f} ms ({b_['bound_by']})")
+        out[op] = (line, err, ms, plain, b_)
+    return out
+
+
+def ntt_bound(bound, F, tag, lm, rows):
+    """Base NTT of 2^lm points on `rows` rows: bytes in + out + twiddles;
+    (lm - 1) m / 2 Montgomery products per row (the last stage has none),
+    each at kernel A's multiply count."""
+    m = 1 << lm
+    return bound(2 * 32 * m * rows + 32 * lm * m // 2,
+                 (lm - 1) * m // 2 * rows * bound.per_elem(
+                     "k_field_binop", tag, "Li0E"))
+
+
+def check_ntt(torch, dev, F, log_ns, seed: int, bound, tag: str):
+    """Kernel C inside transforms of 2^log_n for each log_n: both base
+    calls of the four-step equal to plain, whole transforms invertible and
+    equal to the CPU path at 2^11."""
     from halo2_tpu_torch.ntt import get_ntt
     from halo2_tpu_torch.ntt.fused import base_ntt, base_ntt_plain
-    results = {}
-
-    # A: field ops at 2^21 elements, both BN254 fields
-    n = 1 << 21
-    err = 0
-    for F, seed in ((Fr, 1), (BN254_FQ, 2)):
-        a = random_elems(torch, F, n, seed, dev)
-        b = random_elems(torch, F, n, seed + 10, dev).flip(0)
-        for mode, name in ((cuda_ops.MUL, "mul"), (cuda_ops.ADD, "add"),
-                           (cuda_ops.SUB, "sub")):
-            err = max(err, expect_equal(
-                torch, f"field {name} {F.name}",
-                cuda_ops.binop(F, mode, a, b),
-                cuda_ops.binop_plain(F, mode, a, b)))
-    a = random_elems(torch, Fr, n, 3, dev)
-    b = random_elems(torch, Fr, n, 4, dev)
-    ms = cuda_ms(torch, lambda: cuda_ops.binop(Fr, cuda_ops.MUL, a, b), 10)
-    plain = cuda_ms(torch, lambda: cuda_ops.binop_plain(Fr, cuda_ops.MUL,
-                                                        a, b), 1)
-    log(f"[kernel A] field mul/add/sub x2 fields at 2^21: equal; mul "
-        f"{ms:.3f} ms vs plain {plain:.1f} ms")
-    results["h2_field_binop"] = dict(
-        name="field_binop", route="cuda",
-        source="halo2_tpu_torch/csrc/field.cu",
-        replaces="halo2_tpu/fields/pallas_ops.py:138",
-        max_abs_err=err, ms=ms, plain_ms=plain)
-
-    # B: EC ops at 2^16 points: random, identities, P+P, P+(-P)
-    m = 1 << 16
-    P = G1.generator_mul(random_elems(torch, Fr, m, 5, dev))
-    Q = G1.generator_mul(random_elems(torch, Fr, m, 6, dev))
-    Q[: m // 4] = P[: m // 4]                      # P + P
-    Q[m // 4: m // 2] = G1.neg(P[m // 4: m // 2])  # P + (-P)
-    P[-64:] = G1.identity((64,), dev)              # identities
-    Qa = G1.batch_normalize(Q)
-    inf = G1.is_identity(Q)
-    inf[1::7] = True
-    ops = (("add", 181, lambda: cuda_ec.ec_add(G1, P, Q),
-            lambda: cuda_ec.ec_add_plain(G1, P, Q)),
-           ("madd", 222, lambda: cuda_ec.ec_madd(G1, P, Qa, inf),
-            lambda: cuda_ec.ec_madd_plain(G1, P, Qa, inf)),
-           ("double", 251, lambda: cuda_ec.ec_double(G1, P),
-            lambda: cuda_ec.ec_double_plain(G1, P)))
-    for op, line, kernel, plain_fn in ops:
-        err = expect_equal(torch, f"ec {op}", kernel(), plain_fn())
-        ms = cuda_ms(torch, kernel, 10)
-        plain = cuda_ms(torch, plain_fn, 1)
-        log(f"[kernel B] ec {op} at 2^16: equal; {ms:.3f} ms vs plain "
-            f"{plain:.1f} ms")
-        results[f"h2_ec_{op}"] = dict(
-            name=f"ec_{op}", route="cuda", source="halo2_tpu_torch/csrc/ec.cu",
-            replaces=f"halo2_tpu/curves/pallas_ec.py:{line}",
-            max_abs_err=err, ms=ms, plain_ms=plain)
-
-    # C: base NTT calls of the 2^18 and 2^20 (extended) transforms, then
-    # whole transforms against the CPU path
-    err = 0
-    timing = None
-    for log_n in (K_MAIN, K_MAIN + 2):
-        ntt = get_ntt(Fr, log_n, dev)
-        x = random_elems(torch, Fr, 1 << log_n, 7 + log_n, dev)
+    err, timing = 0, None
+    for log_n in log_ns:
+        ntt = get_ntt(F, log_n, dev)
+        x = random_elems(torch, F, 1 << log_n, seed + log_n, dev)
         _, l1, l2 = ntt._plan[log_n]
         for lm, shape in ((l1, (1, 1 << l1, 1 << l2, 8)),
                           (l2, (1, 1 << l2, 1 << l1, 8))):
             xb = x.reshape(shape)
             table = ntt._tables[(lm, False, "base")]
-            err = max(err, expect_equal(torch, f"ntt base 2^{lm} in 2^{log_n}",
-                                        base_ntt(Fr, xb, table, lm),
-                                        base_ntt_plain(Fr, xb, table, lm)))
+            err = max(err, expect_equal(
+                torch, f"ntt base 2^{lm} in 2^{log_n} {F.name}",
+                base_ntt(F, xb, table, lm), base_ntt_plain(F, xb, table, lm)))
             timing = (xb, table, lm)
         back = ntt.inverse(ntt.forward(x))
         if max_err(torch, back, x) != 0:
             raise AssertionError(f"ntt 2^{log_n}: inverse(forward(x)) != x")
-    small = random_elems(torch, Fr, 1 << 12, 11, dev).reshape(2, 1 << 11, 8)
+    small = random_elems(torch, F, 1 << 12, seed, dev).reshape(2, 1 << 11, 8)
     err = max(err, expect_equal(
-        torch, "ntt 2^11 GPU vs CPU",
-        get_ntt(Fr, 11, dev).forward(small).cpu(),
-        get_ntt(Fr, 11, "cpu").forward(small.cpu())))
+        torch, f"ntt 2^11 GPU vs CPU {F.name}",
+        get_ntt(F, 11, dev).forward(small).cpu(),
+        get_ntt(F, 11, "cpu").forward(small.cpu())))
     xb, table, lm = timing
-    ms = cuda_ms(torch, lambda: base_ntt(Fr, xb, table, lm), 10)
-    plain = cuda_ms(torch, lambda: base_ntt_plain(Fr, xb, table, lm), 1)
-    ntt20 = get_ntt(Fr, K_MAIN + 2, dev)
-    x20 = random_elems(torch, Fr, 1 << (K_MAIN + 2), 9, dev)
-    full = cuda_ms(torch, lambda: ntt20.forward(x20), 3)
-    log(f"[kernel C] base NTT in 2^18 and 2^20 transforms: equal; base "
-        f"2^{lm} x 2^{xb.shape[2]} {ms:.3f} ms vs plain {plain:.1f} ms; "
-        f"full forward 2^20 {full:.3f} ms")
-    results["h2_ntt_base"] = dict(
-        name="ntt_base", route="cuda", source="halo2_tpu_torch/csrc/ntt.cu",
-        replaces="halo2_tpu/ntt/fused.py:119",
-        max_abs_err=err, ms=ms, plain_ms=plain)
+    ms = cuda_ms(torch, lambda: base_ntt(F, xb, table, lm), 10)
+    plain = timed(torch, lambda: base_ntt_plain(F, xb, table, lm))[1]
+    b_ = ntt_bound(bound, F, tag, lm, xb.shape[2])
+    ntt = get_ntt(F, log_ns[-1], dev)
+    x = random_elems(torch, F, 1 << log_ns[-1], seed, dev)
+    full = cuda_ms(torch, lambda: ntt.forward(x), 3)
+    log(f"[kernel C] {F.name} base NTT in 2^{log_ns} transforms: equal; "
+        f"base 2^{lm} x 2^{xb.shape[2]} {ms:.3f} ms vs plain {plain:.1f} ms; "
+        f"bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}); whole forward "
+        f"2^{log_ns[-1]} {full:.3f} ms")
+    return err, ms, plain, b_
 
-    # D: MSM at n = 2^12 against naive_msm, random and adversarial scalars
-    n = 1 << 12
-    bases = G1.generator_mul(random_elems(torch, Fr, n, 12, dev))
-    bases[5] = G1.identity((), dev)
-    desc = StreamMSM(G1, bases)
-    err = 0
-    rng = np.random.default_rng(13)
+
+def check_stream(torch, dev, G, n: int, seed: int):
+    """Kernels D and 8 at n bases against their plain versions on random
+    and adversarial scalar sets; both MSMs equal naive_msm."""
+    from halo2_tpu_torch.msm import naive_msm
+    from halo2_tpu_torch.msm import stream_msm as sm
+    Fr = G.Fr
+    bases = G.generator_mul(random_elems(torch, Fr, n, seed, dev))
+    bases[5] = G.identity((), dev)
+    desc = sm.StreamMSM(G, bases)
+    lanes = sm.unbaked_lanes(n, 43)
+    unbaked = sm.pack_base_stream_table(G, bases, lanes)
+    rng = np.random.default_rng(seed + 1)
     cases = {
-        "random": random_elems(torch, Fr, n, 14, dev),
+        "random": random_elems(torch, Fr, n, seed + 2, dev),
         "zeros": Fr.zeros((n,), dev),
-        "all-equal": random_elems(torch, Fr, 8, 15, dev)[3:4].expand(
+        "all-equal": random_elems(torch, Fr, 8, seed + 3, dev)[3:4].expand(
             n, 8).contiguous(),
         "p-1": Fr.encode_ints([Fr.p - 1] * n, dev),
         "sparse": Fr.encode_ints([int(v) for v in rng.integers(
             0, 3, size=n)], dev),
     }
+    err_d = err_8 = 0
     for case, s in cases.items():
-        keys = stream_keys(G1, s, desc.lanes)
-        err = max(err, expect_equal(
-            torch, f"stream buckets ({case})",
-            stream_bucket(G1, keys, desc.table),
-            stream_bucket_plain(G1, keys, desc.table)))
-        got = G1.to_affine_ints(desc(s)[None])
-        want = G1.to_affine_ints(naive_msm(G1, s, bases)[None])
-        if got != want:
-            raise AssertionError(f"MSM 2^12 ({case}) != naive_msm")
-    log(f"[kernel D] stream buckets at n=2^12 equal to plain; MSM == "
-        f"naive_msm for {', '.join(cases)}")
-    results["h2_stream_bucket"] = dict(
-        name="stream_bucket", route="cuda",
-        source="halo2_tpu_torch/csrc/msm.cu",
-        replaces="halo2_tpu/msm/stream_msm.py:198", max_abs_err=err)
+        keys = sm.stream_keys(G, s, desc.lanes)
+        err_d = max(err_d, expect_equal(
+            torch, f"stream buckets {G.name} ({case})",
+            sm.stream_bucket(G, keys, desc.table),
+            sm.stream_bucket_plain(G, keys, desc.table)))
+        wkeys = sm.window_keys(G, s, unbaked.shape[0], lanes)
+        err_8 = max(err_8, expect_equal(
+            torch, f"window buckets {G.name} ({case})",
+            sm.stream_bucket_windows(G, wkeys, unbaked),
+            sm.stream_bucket_windows_plain(G, wkeys, unbaked)))
+        want = G.to_affine_ints(naive_msm(G, s, bases)[None])
+        if G.to_affine_ints(desc(s)[None]) != want:
+            raise AssertionError(f"baked MSM {G.name} ({case}) != naive")
+        if G.to_affine_ints(sm.msm_stream_unbaked(G, s, unbaked)[None]) != \
+                want:
+            raise AssertionError(f"unbaked MSM {G.name} ({case}) != naive")
+    log(f"[kernels D, 8] {G.name} at n=2^{n.bit_length() - 1}: buckets equal "
+        f"to plain, MSMs == naive_msm for {', '.join(cases)}")
+    return err_d, err_8
+
+
+def check_kernels(torch, dev, bound) -> dict:
+    from halo2_tpu_torch.curves import BN254_G1 as G1
+    from halo2_tpu_torch.fields import BN254_FQ, BN254_FR as Fr
+    results = {}
+    err_q = check_field(torch, dev, BN254_FQ, 1 << 21, 2, bound, "Bn254Fq")[0]
+    err, ms, plain, b_ = check_field(torch, dev, Fr, 1 << 21, 1, bound,
+                                     "Bn254Fr")
+    results["h2_field_binop"] = _entry(
+        "field_binop", "field.cu", "fields/pallas_ops.py:138",
+        max(err, err_q), ms=ms, plain_ms=plain, **b_)
+    for op, (line, err, ms, plain, b_) in check_ec(
+            torch, dev, G1, 1 << 16, 5, bound, "Bn254G1").items():
+        results[f"h2_ec_{op}"] = _entry(
+            f"ec_{op}", "ec.cu", f"curves/pallas_ec.py:{line}", err,
+            ms=ms, plain_ms=plain, **b_)
+    err, ms, plain, b_ = check_ntt(torch, dev, Fr, (K_MAIN, K_MAIN + 2), 7,
+                                   bound, "Bn254Fr")
+    results["h2_ntt_base"] = _entry("ntt_base", "ntt.cu", "ntt/fused.py:119",
+                                    err, ms=ms, plain_ms=plain, **b_)
+    err_d, err_8 = check_stream(torch, dev, G1, 1 << 12, 12)
+    results["h2_stream_bucket"] = _entry(
+        "stream_bucket", "msm.cu", "msm/stream_msm.py:198", err_d)
+    results["h2_stream_bucket_windows"] = _entry(
+        "stream_bucket_windows", "msm.cu", "msm/stream_msm.py:356", err_8)
     return results
 
 
-def profile_prove(torch, params, pk, circuit, inst):
+def check_pasta(torch, dev, bound, results: dict):
+    """The Pasta instances of kernels A-D (and 8) against their plain
+    versions; their times go to each kernel's "instances"."""
+    from halo2_tpu_torch.curves import PALLAS, VESTA
+    from halo2_tpu_torch.fields import PASTA_FP, PASTA_FQ
+    for F, tag, seed in ((PASTA_FP, "PastaFp", 31), (PASTA_FQ, "PastaFq", 33)):
+        err, ms, plain, b_ = check_field(torch, dev, F, 1 << 21, seed, bound,
+                                         tag)
+        r = results["h2_field_binop"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.setdefault("instances", {})[F.name] = dict(ms=ms, plain_ms=plain,
+                                                     **b_)
+        err, ms, plain, b_ = check_ntt(torch, dev, F, (14, 16), seed, bound,
+                                       tag)
+        r = results["h2_ntt_base"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.setdefault("instances", {})[F.name] = dict(ms=ms, plain_ms=plain,
+                                                     **b_)
+    for G, tag, seed in ((PALLAS, "Pallas", 35), (VESTA, "Vesta", 37)):
+        for op, (line, err, ms, plain, b_) in check_ec(
+                torch, dev, G, 1 << 16, seed, bound, tag).items():
+            r = results[f"h2_ec_{op}"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r.setdefault("instances", {})[G.name] = dict(ms=ms, plain_ms=plain,
+                                                         **b_)
+        err_d, err_8 = check_stream(torch, dev, G, 1 << 12, seed)
+        for name, err in (("h2_stream_bucket", err_d),
+                          ("h2_stream_bucket_windows", err_8)):
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               err)
+
+
+def _stream_of_scan(torch, G, n: int, seed: int, dev, kind: str):
+    """A sorted (keys, affine rows) stream of n elements: random buckets,
+    or one bucket owning every element; identity points and a tail of
+    SENTINEL_KEY padding."""
+    from halo2_tpu_torch.msm import bucket_scan as bs
+    pts = G.generator_mul(random_elems(torch, G.Fr, n, seed, dev))
+    pts[3::11] = G.identity((1,), dev)
+    rows = bs.pack_affine_rows(G.batch_normalize(pts), G.is_identity(pts))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if kind == "one-bucket":
+        keys = torch.full((n,), 2 * 7 + 1, dtype=torch.int32)
+    else:
+        keys = torch.sort(torch.randint(0, 2 * 50, (n,), generator=g,
+                                        dtype=torch.int64))[0].to(torch.int32)
+    keys[-96:] = bs.SENTINEL_KEY
+    return keys.to(dev), rows, pts
+
+
+def check_kernel_9(torch, dev) -> dict:
+    """Kernel 9 on sorted streams, every curve and mode: one bucket owning
+    every element, random runs, identity points, sentinel padding; affine
+    rows with packed signed keys, plain affine rows, projective points."""
+    from halo2_tpu_torch.curves import BN254_G1, PALLAS, VESTA
+    from halo2_tpu_torch.msm import bucket_scan as bs
+    err = 0
+    for G in (BN254_G1, PALLAS, VESTA):
+        for kind in ("one-bucket", "random"):
+            keys, rows, pts = _stream_of_scan(torch, G, 1 << 14, 41, dev, kind)
+            for mode, data, k in ((bs.PACKED, rows, keys),
+                                  (bs.AFFINE, rows, keys >> 1),
+                                  (bs.PROJECTIVE, pts, keys >> 1)):
+                got = bs.scan_level(G, k, data, 64, mode)
+                want = bs.scan_level_plain(G, k, data, 64, mode)
+                err = max(err, expect_equal(
+                    torch, f"scan {G.name} {kind} mode {mode}", got[0],
+                    want[0]))
+                if not torch.equal(got[1], want[1]):
+                    raise AssertionError(f"scan {G.name} {kind}: lane keys")
+    log("[kernel 9] scan levels equal to plain for BN254 / Pallas / Vesta, "
+        "packed / affine / projective, one bucket and random runs")
+    return {"h2_scan_level": _entry("scan_level", "scan.cu",
+                                    "msm/bucket_scan.py:221", err)}
+
+
+# ----------------------------------------------------------------------
+# CPU == GPU proofs
+# ----------------------------------------------------------------------
+
+def compare_kzg_cpu_gpu(torch, dev):
+    from halo2_tpu_torch.api import create_proof, keygen, verify
+    from halo2_tpu_torch.commit import (ParamsKZG, ProverSHPLONK,
+                                        SingleStrategyKZG, VerifierSHPLONK)
+    from halo2_tpu_torch.compat import plonk_api
+    from halo2_tpu_torch.fields import BN254_FR as F
+    circuit, inst = plonk_api.plonk_api_instance(F)
+    proofs = {}
+    for where in ("cpu", dev):
+        t0 = time.time()
+        params = ParamsKZG.new(K_CMP, device=where)
+        pk = keygen(F, params, K_CMP, circuit)
+        proof = create_proof(params, pk, [circuit], [inst], random.Random(1),
+                             multiopen_prover_cls=ProverSHPLONK)
+        if not verify(params, pk.vk, proof, [inst],
+                      multiopen_verifier_cls=VerifierSHPLONK,
+                      strategy_cls=SingleStrategyKZG):
+            raise AssertionError(f"KZG k={K_CMP} proof on {where} failed")
+        proofs[str(where)] = proof
+        log(f"[KZG k={K_CMP}] {where}: keygen+prove+verify "
+            f"{time.time() - t0:.2f} s, {len(proof)} proof bytes")
+    if proofs["cpu"] != proofs[str(dev)]:
+        raise AssertionError("KZG CPU-plain and GPU-kernel proofs differ")
+    log(f"[KZG k={K_CMP}] CPU-plain and GPU-kernel proof bytes are equal")
+
+
+def compare_ipa_cpu_gpu(torch, dev):
+    from halo2_tpu_torch.api import create_proof, keygen, verify
+    from halo2_tpu_torch.commit import ParamsIPA
+    from halo2_tpu_torch.compat import plonk_api
+    from halo2_tpu_torch.curves import VESTA
+    from halo2_tpu_torch.fields import PASTA_FP as F
+    circuit, inst = plonk_api.plonk_api_instance(F)
+    proofs = {}
+    for where in ("cpu", dev):
+        t0 = time.time()
+        params = ParamsIPA.new(VESTA, K_IPA_CMP, device=where)
+        pk = keygen(F, params, K_IPA_CMP, circuit)
+        proof = create_proof(params, pk, [circuit], [inst], random.Random(1))
+        if not verify(params, pk.vk, proof, [inst]):
+            raise AssertionError(f"IPA k={K_IPA_CMP} proof on {where} failed")
+        proofs[str(where)] = proof
+        log(f"[IPA k={K_IPA_CMP}] {where}: params+keygen+prove+verify "
+            f"{time.time() - t0:.2f} s, {len(proof)} proof bytes")
+    if proofs["cpu"] != proofs[str(dev)]:
+        raise AssertionError("IPA CPU-plain and GPU-kernel proofs differ")
+    log(f"[IPA k={K_IPA_CMP}] CPU-plain and GPU-kernel proof bytes are equal")
+
+
+# ----------------------------------------------------------------------
+# the main paths
+# ----------------------------------------------------------------------
+
+def prove_verify(torch, tag, params, pk, circuit, inst, n_steady, prove_kw,
+                 verify_kw):
+    """A first and n_steady steady proves with their step tables, verify,
+    and a tampered proof that must be rejected."""
+    from halo2_tpu_torch.api import create_proof, verify
+    steady = []
+    for seed, run in enumerate(["first"] + ["steady"] * n_steady, start=1):
+        timings = {}
+        t0 = time.time()
+        proof = create_proof(params, pk, [circuit], [inst],
+                             random.Random(seed), timings=timings,
+                             **prove_kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if run == "steady":
+            steady.append(wall)
+        steps = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+        log(f"[{tag}] prove ({run}) {wall:.3f} s; steps: {steps}")
+    log(f"[{tag}] steady prove over {n_steady} runs: median "
+        f"{sorted(steady)[n_steady // 2]:.3f} s, min {min(steady):.3f} s, "
+        f"max {max(steady):.3f} s")
+    t0 = time.time()
+    ok = verify(params, pk.vk, proof, [inst], **verify_kw)
+    t_verify = time.time() - t0
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    rejected = not verify(params, pk.vk, bytes(bad), [inst], **verify_kw)
+    log(f"[{tag}] verify {ok} in {t_verify:.3f} s; tampered proof rejected "
+        f"{rejected}; {len(proof)} proof bytes")
+    if not ok or not rejected:
+        raise AssertionError(f"{tag}: verification failed")
+
+
+def run_path(torch, tag, counts, need, body):
+    """Run one main path with the launch counts set to 0 just before and
+    read just after; every kernel in `need` must have launched."""
+    from halo2_tpu_torch import _build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    out = body()
+    torch.cuda.synchronize()
+    c = _build.launch_counts()
+    counts[tag] = c
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] peak device memory {peak / 2**30:.2f} GiB; launches {c}")
+    idle = [k for k in need if c.get(k, 0) <= 0]
+    if idle:
+        raise AssertionError(f"{tag}: kernels not launched: {idle}")
+    return out
+
+
+def _kzg_kw():
+    from halo2_tpu_torch.commit import (ProverSHPLONK, SingleStrategyKZG,
+                                        VerifierSHPLONK)
+    return (dict(multiopen_prover_cls=ProverSHPLONK),
+            dict(multiopen_verifier_cls=VerifierSHPLONK,
+                 strategy_cls=SingleStrategyKZG))
+
+
+def run_kzg_plonk_api(torch, dev, counts):
+    from halo2_tpu_torch.api import keygen
+    from halo2_tpu_torch.commit import ParamsKZG
+    from halo2_tpu_torch.compat import plonk_api
+    from halo2_tpu_torch.fields import BN254_FR as F
+    tag = f"KZG plonk_api k={K_MAIN}"
+    circuit, inst = plonk_api.plonk_api_instance(F)
+
+    def body():
+        t0 = time.time()
+        params = ParamsKZG.new(K_MAIN, device=dev)
+        torch.cuda.synchronize()
+        t_params = time.time() - t0
+        t0 = time.time()
+        pk = keygen(F, params, K_MAIN, circuit)
+        torch.cuda.synchronize()
+        log(f"[{tag}] ParamsKZG.new {t_params:.2f} s, keygen "
+            f"{time.time() - t0:.2f} s")
+        prove_verify(torch, tag, params, pk, circuit, inst, N_STEADY,
+                     *_kzg_kw())
+        return params, pk
+
+    params, pk = run_path(torch, tag, counts, (
+        "h2_field_binop", "h2_ec_add", "h2_ec_madd", "h2_ec_double",
+        "h2_ntt_base", "h2_stream_bucket"), body)
+    profile_prove(torch, tag, params, pk, circuit, inst)
+    return params
+
+
+def run_lookup_heavy(torch, dev, counts):
+    from halo2_tpu_torch.api import keygen
+    from halo2_tpu_torch.commit import ParamsKZG
+    from halo2_tpu_torch.compat.lookup_heavy import lookup_heavy_instance
+    from halo2_tpu_torch.fields import BN254_FR as F
+    tag = f"KZG lookup_heavy k={K_LOOKUP}"
+    t0 = time.time()
+    circuit, inst, kg_circuit = lookup_heavy_instance(F, K_LOOKUP)
+    log(f"[{tag}] witness generation {time.time() - t0:.2f} s")
+
+    def body():
+        t0 = time.time()
+        params = ParamsKZG.new(K_LOOKUP, device=dev)
+        torch.cuda.synchronize()
+        t_params = time.time() - t0
+        t0 = time.time()
+        pk = keygen(F, params, K_LOOKUP, kg_circuit)
+        torch.cuda.synchronize()
+        log(f"[{tag}] ParamsKZG.new {t_params:.2f} s, keygen "
+            f"{time.time() - t0:.2f} s; "
+            f"{len(pk.vk.cs.cs.lookups)} lookups")
+        prove_verify(torch, tag, params, pk, circuit, inst, N_STEADY_BIG,
+                     *_kzg_kw())
+        return params
+
+    return run_path(torch, tag, counts, (
+        "h2_field_binop", "h2_ec_add", "h2_ec_madd", "h2_ec_double",
+        "h2_ntt_base", "h2_stream_bucket_windows"), body)
+
+
+def run_ipa(torch, dev, counts):
+    from halo2_tpu_torch.api import keygen
+    from halo2_tpu_torch.commit import ParamsIPA
+    from halo2_tpu_torch.compat import plonk_api
+    from halo2_tpu_torch.curves import VESTA
+    from halo2_tpu_torch.fields import PASTA_FP as F
+    tag = f"IPA plonk_api k={K_IPA}"
+    circuit, inst = plonk_api.plonk_api_instance(F)
+
+    def body():
+        t0 = time.time()
+        params = ParamsIPA.new(VESTA, K_IPA, device=dev)
+        torch.cuda.synchronize()
+        t_params = time.time() - t0
+        t0 = time.time()
+        pk = keygen(F, params, K_IPA, circuit)
+        torch.cuda.synchronize()
+        log(f"[{tag}] ParamsIPA.new {t_params:.2f} s (host hash-to-curve "
+            f"and point NTT), keygen {time.time() - t0:.2f} s")
+        prove_verify(torch, tag, params, pk, circuit, inst, N_STEADY_BIG,
+                     {}, {})
+        return params, pk
+
+    params, pk = run_path(torch, tag, counts, (
+        "h2_field_binop", "h2_ec_add", "h2_ec_double", "h2_ntt_base",
+        "h2_stream_bucket", "h2_scan_level"), body)
+    profile_prove(torch, tag, params, pk, circuit, inst, {})
+    return params, pk, circuit, inst
+
+
+def profile_prove(torch, tag, params, pk, circuit, inst, prove_kw=None):
     """One more steady prove under torch.profiler: device busy time (union
-    of kernel intervals) against wall time, and the kernels that take it."""
+    of kernel intervals) against wall time, the number of device kernels,
+    and the kernels that take the time."""
     from torch.profiler import ProfilerActivity, profile
 
     from halo2_tpu_torch.api import create_proof
+    if prove_kw is None:
+        prove_kw = _kzg_kw()[0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        create_proof(params, pk, [circuit], [inst], random.Random(3))
+        create_proof(params, pk, [circuit], [inst], random.Random(3),
+                     **prove_kw)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -354,34 +769,216 @@ def profile_prove(torch, params, pk, circuit, inst):
     kernels = "; ".join(f"{e.key.split('(')[0][:40]} "
                         f"{e.self_device_time_total / 1e3:.1f} ms x{e.count}"
                         for e in top[:6])
-    log(f"[k={K_MAIN}] profiled prove {wall_ms:.1f} ms, device busy "
+    log(f"[{tag}] profiled prove {wall_ms:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms, idle share "
-        f"{1 - busy_us / 1e3 / wall_ms:.3f}; top device time: {kernels}")
+        f"{1 - busy_us / 1e3 / wall_ms:.3f}, {len(spans)} device kernels; "
+        f"top device time: {kernels}")
 
 
-def check_msm_main(torch, params) -> dict:
+# ----------------------------------------------------------------------
+# kernels at the main paths' shapes
+# ----------------------------------------------------------------------
+
+def stream_bound(bound, G, tag, fn, windows, steps, lanes):
+    """A stream pass: keys and table read once, buckets written once; one
+    mixed add per (window, row)."""
+    from halo2_tpu_torch.msm.stream_msm import N_BUCKETS
+    return bound(4 * windows * steps * lanes + 72 * steps * lanes +
+                 96 * windows * lanes * N_BUCKETS,
+                 windows * steps * lanes * bound.per_elem(fn, tag))
+
+
+def check_msm_main(torch, params, bound) -> dict:
     """Kernel D against its plain version at the k=18 shape: the baked
     Lagrange-basis table of the main path, random scalars."""
-    from halo2_tpu_torch.fields import BN254_FR as Fr
     from halo2_tpu_torch.msm.stream_msm import (stream_bucket,
                                                 stream_bucket_plain,
                                                 stream_keys)
-    G1 = params.curve
-    desc = params.engine.msm_backend.get_base_descriptor(G1,
-                                                         params.g_lagrange)
-    s = random_elems(torch, Fr, params.n, 21, params.device)
-    keys = stream_keys(G1, s, desc.lanes)
-    err = expect_equal(torch, "stream buckets at k=18",
-                       stream_bucket(G1, keys, desc.table),
-                       stream_bucket_plain(G1, keys, desc.table))
-    ms = cuda_ms(torch, lambda: stream_bucket(G1, keys, desc.table), 5)
-    plain = cuda_ms(torch, lambda: stream_bucket_plain(G1, keys, desc.table),
-                    1)
+    G = params.curve
+    desc = params.engine.msm_backend.get_base_descriptor(G, params.g_lagrange)
+    s = random_elems(torch, G.Fr, params.n, 21, params.device)
+    keys = stream_keys(G, s, desc.lanes)
+    want, plain = timed(torch, lambda: stream_bucket_plain(G, keys,
+                                                           desc.table))
+    err = expect_equal(torch, f"stream buckets at k={params.k}",
+                       stream_bucket(G, keys, desc.table), want)
+    ms = cuda_ms(torch, lambda: stream_bucket(G, keys, desc.table), 5)
     msm_ms = cuda_ms(torch, lambda: desc(s), 3)
-    log(f"[kernel D] stream buckets at k=18 ({tuple(desc.table.shape)}): "
-        f"equal; {ms:.3f} ms vs plain {plain:.1f} ms; whole MSM "
+    steps, _, lanes = desc.table.shape
+    b_ = stream_bound(bound, G, "Bn254G1", "k_stream_bucketI", 1, steps, lanes)
+    log(f"[kernel D] stream buckets at k={params.k} "
+        f"({tuple(desc.table.shape)}): equal; {ms:.3f} ms vs plain "
+        f"{plain:.1f} ms; bound {b_['bound_ms']:.3f} ms ({b_['bound_by']}); "
+        f"whole MSM {msm_ms:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, **b_)
+
+
+def check_unbaked_main(torch, params, bound) -> dict:
+    """Kernel 8 against its plain version at the k=20 table shape, and one
+    k=20 MSM through the unbaked table against the same MSM through a
+    baked table built for this check."""
+    from halo2_tpu_torch.msm import stream_msm as sm
+    from halo2_tpu_torch.msm.bucket_scan import n_windows_for
+    G = params.curve
+    desc = params.engine.msm_backend.get_base_descriptor(G, params.g_lagrange)
+    if desc.baked:
+        raise AssertionError(f"k={params.k}: the descriptor was baked")
+    table = desc.table
+    steps, _, lanes = table.shape
+    nw = n_windows_for(G.Fr, sm.STREAM_C)
+    s = random_elems(torch, G.Fr, params.n, 22, params.device)
+    keys = sm.window_keys(G, s, steps, lanes)
+    want, plain = timed(torch, lambda: sm.stream_bucket_windows_plain(
+        G, keys, table))
+    err = expect_equal(torch, f"window buckets at k={params.k}",
+                       sm.stream_bucket_windows(G, keys, table), want)
+    del want
+    ms = cuda_ms(torch, lambda: sm.stream_bucket_windows(G, keys, table), 3)
+    b_ = stream_bound(bound, G, "Bn254G1", "k_stream_bucket_windowsI", nw,
+                      steps, lanes)
+    unbaked_ms = cuda_ms(torch, lambda: desc(s), 3)
+    got = G.to_affine_ints(desc(s)[None])
+    t0 = time.time()
+    baked_lanes = sm.lanes_for(nw * params.n)
+    baked = sm.bake_stream_table(G, params.g_lagrange, baked_lanes)
+    torch.cuda.synchronize()
+    t_bake = time.time() - t0
+    baked_ms = cuda_ms(torch, lambda: sm.msm_stream_baked(G, s, baked), 3)
+    want = G.to_affine_ints(sm.msm_stream_baked(G, s, baked)[None])
+    log(f"[kernel 8] window buckets at k={params.k} ({nw} windows x "
+        f"{tuple(table.shape)}): equal; {ms:.3f} ms vs plain {plain:.1f} ms; "
+        f"bound {b_['bound_ms']:.3f} ms ({b_['bound_by']})")
+    log(f"[unbaked vs baked] k={params.k} MSM: unbaked table "
+        f"{table.numel() * 4 / 2**20:.1f} MiB, whole MSM {unbaked_ms:.3f} ms; "
+        f"baked table {baked.numel() * 4 / 2**30:.2f} GiB built in "
+        f"{t_bake:.2f} s, whole MSM {baked_ms:.3f} ms; equal {got == want}")
+    if got != want:
+        raise AssertionError("unbaked and baked k=20 MSMs differ")
+    return dict(max_abs_err=max(err, 0), ms=ms, plain_ms=plain, **b_)
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Record every call of module.name (arguments, result, host seconds)
+    while the block runs; the package looks these functions up by module
+    global at each call, so the wrapper sees every one."""
+    calls = []
+    orig = getattr(module, name)
+
+    def wrapper(*args):
+        t0 = time.perf_counter()
+        out = orig(*args)
+        calls.append((args, out, time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def check_ipa_main(torch, params, pk, circuit, inst, bound, results):
+    """One more steady IPA prove with every kernel D and kernel 9 call and
+    every host blind-term MSM recorded.  The first recorded call of each
+    shape is then held against its plain version on its own inputs (the
+    main path's shapes: g_lagrange's and g's baked tables, and every scan
+    level and tail scan of every opening MSM; a round's L and R MSMs repeat
+    each other's shapes); kernel 9 is timed at its largest call;
+    the host MSMs' share of the prove is printed, and one blind term on the
+    card (the reference's one-point device MSM) is timed against the
+    host's."""
+    from halo2_tpu_torch.api import create_proof
+    from halo2_tpu_torch.commit import ipa
+    from halo2_tpu_torch.msm import bucket_scan as bs
+    from halo2_tpu_torch.msm import naive_msm
+    from halo2_tpu_torch.msm import stream_msm as sm
+    G = params.curve
+    tag = f"IPA plonk_api k={params.k}"
+    with recording(bs, "scan_level") as scans, \
+            recording(sm, "stream_bucket") as streams, \
+            recording(ipa, "host_msm") as hosts:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        create_proof(params, pk, [circuit], [inst], random.Random(4))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    host_s = sum(c[2] for c in hosts)
+    log(f"[{tag}] recorded prove {wall:.3f} s: {len(streams)} kernel D "
+        f"calls, {len(scans)} kernel 9 calls, {len(hosts)} host blind-term "
+        f"MSMs taking {host_s * 1e3:.1f} ms (share {host_s / wall:.4f})")
+
+    def first_of_each(calls, key):
+        seen = {}
+        for call in calls:
+            seen.setdefault(key(call[0]), call)
+        return list(seen.values())
+
+    err_d = 0
+    tables = first_of_each(streams, lambda a: a[2].data_ptr())
+    for args, out, _ in tables:
+        err_d = max(err_d, expect_equal(
+            torch, f"{tag} stream buckets {tuple(args[2].shape)}", out,
+            sm.stream_bucket_plain(*args)))
+    shapes = sorted({tuple(a[2].shape) for a, _, _ in streams})
+    log(f"[kernel D] {tag}: the first of the prove's {len(streams)} calls "
+        f"on each of its {len(tables)} tables equal to plain (tables "
+        f"{shapes})")
+    r = results["h2_stream_bucket"]
+    r["max_abs_err"] = max(r["max_abs_err"], err_d)
+    r.setdefault("path_checks", {})[tag] = dict(calls=len(tables),
+                                                max_abs_err=err_d)
+
+    err_9, plain_ms, big = 0, 0.0, None
+    scans_1 = first_of_each(scans, lambda a: (a[1].shape[0], a[3], a[4]))
+    for args, (finals, lane_keys), _ in scans_1:
+        keys, mode = args[1], args[4]
+        (want, want_keys), t = timed(torch, lambda: bs.scan_level_plain(*args))
+        err_9 = max(err_9, expect_equal(
+            torch, f"{tag} scan mode {mode} M={keys.shape[0]} "
+            f"block {args[3]}", finals, want))
+        if not torch.equal(lane_keys, want_keys):
+            raise AssertionError(f"{tag}: scan lane keys differ")
+        if big is None or keys.shape[0] > big[1].shape[0]:
+            big, plain_ms = args, t
+    modes = sorted({a[4] for a, _, _ in scans})
+    m = big[1].shape[0]
+    ms = cuda_ms(torch, lambda: bs.scan_level(*big), 5)
+    width = 4 * (3 * 8 if big[4] == bs.PROJECTIVE else bs.ROW_WORDS)
+    b_ = bound((4 + width) * m + 100 * (m // big[3]),
+               m * bound.per_elem("k_scan_levelI", SASS_TAG[G.name],
+                                  SCAN_SASS[big[4]]))
+    n = params.n // 2
+    s = random_elems(torch, G.Fr, n, 23, params.device)
+    msm_ms = cuda_ms(torch, lambda: bs.msm_variable(G, s, params.g[:n], 8), 1)
+    log(f"[kernel 9] {tag}: the first of the prove's {len(scans)} calls of "
+        f"each of {len(scans_1)} shapes (modes {modes}) equal to plain; the "
+        f"largest ({m} elements, mode "
+        f"{big[4]}, {m // big[3]} lanes) {ms:.3f} ms vs plain "
+        f"{plain_ms:.1f} ms; bound {b_['bound_ms']:.4f} ms "
+        f"({b_['bound_by']}); whole variable-base MSM of {n} points "
         f"{msm_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    results["h2_scan_level"].update(
+        max_abs_err=max(results["h2_scan_level"]["max_abs_err"], err_9),
+        ms=ms, plain_ms=plain_ms, path_checks={
+            tag: dict(calls=len(scans_1), max_abs_err=err_9)}, **b_)
+
+    r_blind = random.Random(5).randrange(G.Fr.p)
+    w = G.from_affine_ints([params.w_aff], params.device)
+    sc = G.Fr.encode_ints([r_blind], params.device)
+    naive_msm(G, sc, w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = naive_msm(G, sc, w)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_host = ipa.host_msm(G, [r_blind], [params.w_aff])
+    t_host = time.perf_counter() - t0
+    if G.to_affine_ints(on_card[None]) != [on_host]:
+        raise AssertionError("blind term: card and host differ")
+    log(f"[{tag}] one blind term [r]W: host {t_host * 1e3:.2f} ms, on the "
+        f"card as a one-point MSM {t_card * 1e3:.2f} ms; equal")
 
 
 if __name__ == "__main__":

@@ -1,17 +1,21 @@
 """halo2_tpu_torch — the PyTorch / CUDA port of halo2_tpu for one NVIDIA H100.
 
-The main path of the reference (KZG on BN254 with the SHPLONK multiopen
-and a Blake2b transcript: keygen -> create_proof -> verify) runs on PyTorch
-tensors, with four hand-written Hopper kernels in `csrc/`:
+keygen -> create_proof -> verify run on PyTorch tensors, for KZG on BN254
+with the SHPLONK multiopen and for IPA over the Pasta curves (the API's
+default, as in the reference), with a Blake2b transcript.  Six
+hand-written Hopper kernels in `csrc/` carry the device work:
 
-  A  field.cu  field mul / add / sub       (fields/cuda_ops.py)
-  B  ec.cu     G1 complete add/madd/double (curves/cuda_ec.py)
-  C  ntt.cu    base Stockham NTT           (ntt/fused.py)
-  D  msm.cu    baked fixed-base buckets    (msm/stream_msm.py)
+  A  field.cu  field mul / add / sub         (fields/cuda_ops.py)
+  B  ec.cu     complete add / madd / double  (curves/cuda_ec.py)
+  C  ntt.cu    base Stockham NTT             (ntt/fused.py)
+  D  msm.cu    baked fixed-base buckets      (msm/stream_msm.py)
+  8  msm.cu    unbaked per-window buckets    (msm/stream_msm.py)
+  9  scan.cu   segmented scan, variable base (msm/bucket_scan.py)
 
 Each kernel has a plain PyTorch version beside it, taken for CPU tensors.
-The package imports no JAX; it shares the reference's JAX-free host code
-(`halo2_tpu.frontend`, see `_shared.py`).
+The package imports no JAX and keeps its own copy of the host code it
+needs (frontend/, native/, compat/, msm/host_msm.py, plonk/errors.py).
+Entry points run on the card unless the caller names the CPU.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

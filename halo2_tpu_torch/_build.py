@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels from `csrc/` at first use and bind them.
 
-All kernel sources compile in ONE `nvcc` call into a shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds), which
-is loaded with `ctypes`.  The library lands in `halo2_tpu_torch/_build/`
-under a name keyed by the hash of the sources and flags, so a later process
-reuses it and an edited source rebuilds.
+Each kernel source compiles in its own `nvcc` process, all started together,
+and one more `nvcc` links the objects into a shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), which is loaded
+with `ctypes`.  The library lands in `halo2_tpu_torch/_build/` under a name
+keyed by the hash of the sources and flags, so a later process reuses it and
+an edited source rebuilds.
 
 Each entry point is a `Kernel`: the wrapper that launches it counts its
 launches (`Kernel.launches`), and a non-zero `cudaGetLastError()` returned
@@ -28,13 +29,14 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("field.cu", "ec.cu", "ntt.cu", "msm.cu")
-HEADERS = ("bn254.cuh",)
+SOURCES = ("field.cu", "ec.cu", "ntt.cu", "msm.cu", "scan.cu")
+HEADERS = ("arith.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
+lib_path = None          # the loaded library's file
 build_seconds = None     # wall time of this process's build (None: reused)
 KERNELS: dict = {}       # name -> Kernel
 
@@ -58,25 +60,53 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs):
+    """Wait for every nvcc process; raise with the first failure's output."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"{' '.join(cmd)}\n{out}{err}"
+    if failed is not None:
+        raise RuntimeError("nvcc failed:\n" + failed)
+
+
+def _compile(so: str):
+    """One nvcc per source, all at once, then one link into `so`."""
+    nvcc = _nvcc()
+    tag = f"{so}.{os.getpid()}"
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = f"{tag}.{src}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    try:
+        _run(procs)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tag}.tmp", *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(f"{tag}.tmp", so)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first call in this checkout."""
-    global _LIB, build_seconds
+    global _LIB, build_seconds, lib_path
     with _LOCK:
         if _LIB is None:
             os.makedirs(BUILD_DIR, exist_ok=True)
             so = os.path.join(BUILD_DIR, f"libhalo2_kernels_{_digest()}.so")
             if not os.path.exists(so):
                 t0 = time.time()
-                tmp = f"{so}.tmp{os.getpid()}"
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                       *[os.path.join(CSRC, s) for s in SOURCES]]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        "nvcc failed:\n" + res.stdout + res.stderr)
-                os.replace(tmp, so)
+                _compile(so)
                 build_seconds = time.time() - t0
             lib = ctypes.CDLL(so)
+            lib_path = so
             lib.h2_error_string.argtypes = [ctypes.c_int]
             lib.h2_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -115,6 +145,17 @@ def reset_launch_counts():
 
 def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  Entry points default to "cuda";
+    with no CUDA device visible that raises instead of running on the CPU,
+    which a caller gets only by naming it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device=\"cpu\" "
+                           "to run on the CPU")
+    return dev
 
 
 def stream_of(t) -> int:

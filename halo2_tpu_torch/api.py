@@ -1,10 +1,14 @@
-"""Top-level proving API (port of halo2_tpu/api.py) for KZG / SHPLONK /
-Blake2b on BN254.  The device is the params' device.
+"""Top-level proving API (port of the JAX reference's api.py), with its
+defaults: IPA multiopen and strategy, Blake2b transcript.  The device is
+the params' device (CUDA unless the caller names another).
 
-    params = ParamsKZG.new(k, device="cuda")
-    pk = keygen(BN254_FR, params, k, circuit)
+    params = ParamsIPA.new(VESTA, k)
+    pk = keygen(PASTA_FP, params, k, circuit)
     proof = create_proof(params, pk, [circuit], [instances], rng)
     ok = verify(params, pk.vk, proof, [instances])
+
+KZG callers pass `multiopen_prover_cls=ProverSHPLONK`, and
+`multiopen_verifier_cls=VerifierSHPLONK, strategy_cls=SingleStrategyKZG`.
 """
 
 from __future__ import annotations
@@ -12,13 +16,11 @@ from __future__ import annotations
 import time
 from typing import List, Optional
 
-from halo2_tpu.frontend import WitnessCalculator, compile_circuit
-from halo2_tpu.frontend.circuit import configure_circuit
-from halo2_tpu.frontend.constraint_system import ConstraintSystem
-
-from ._shared import errors
-from .commit import (ProverSHPLONK, SingleStrategyKZG, VerifierSHPLONK,
-                     new_rng)
+from .frontend import WitnessCalculator, compile_circuit
+from .frontend.circuit import configure_circuit
+from .frontend.constraint_system import ConstraintSystem
+from .plonk.errors import VerifyError
+from .commit import ProverIPA, SingleStrategyIPA, VerifierIPA, new_rng
 from .engine import PlonkEngine
 from .plonk import Prover
 from .plonk import keygen as backend_keygen
@@ -36,7 +38,7 @@ def keygen(F, params, k: int, circuit, compress_selectors: bool = True,
 
 def create_proof(params, pk, circuits: List, instances, rng=None,
                  transcript_cls=Blake2bWrite,
-                 multiopen_prover_cls=ProverSHPLONK,
+                 multiopen_prover_cls=ProverIPA,
                  engine: Optional[PlonkEngine] = None,
                  timings: Optional[dict] = None) -> bytes:
     """One proof over one or more circuit instances.  Pass a dict as
@@ -75,8 +77,8 @@ def create_proof(params, pk, circuits: List, instances, rng=None,
 
 def verify(params, vk, proof: bytes, instances,
            transcript_cls=Blake2bRead,
-           multiopen_verifier_cls=VerifierSHPLONK,
-           strategy_cls=SingleStrategyKZG) -> bool:
+           multiopen_verifier_cls=VerifierIPA,
+           strategy_cls=SingleStrategyIPA) -> bool:
     transcript = transcript_cls(params.curve, proof)
     verifier = multiopen_verifier_cls(params)
     try:
@@ -84,5 +86,5 @@ def verify(params, vk, proof: bytes, instances,
                                verifier.QUERY_INSTANCE)
         return strategy_cls(params).process(
             lambda msm: verifier.verify_proof(transcript, queries, msm))
-    except errors().VerifyError:
+    except VerifyError:
         return False

@@ -1,4 +1,4 @@
-"""Commitment-scheme shared types (port of halo2_tpu/commit/base.py)."""
+"""Commitment-scheme shared types (port of the JAX reference's commit/base.py)."""
 
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-"""KZG commitments on BN254 (port of halo2_tpu/commit/kzg.py).
+"""KZG commitments on BN254 (port of the JAX reference's commit/kzg.py).
 
 `ParamsKZG` holds [s^i]G1 and the Lagrange-basis bases on one device;
 commitments of full-length polynomials go through its engine's cached
-fixed-base descriptors (by default `GpuMsmEngine`, kernel D).  MSMKZG /
+fixed-base descriptors (by default `GpuMsmEngine`, kernel D or 8).  MSMKZG /
 DualMSM are host-side accumulators for the verifier, whose MSMs have tens
 of terms and run on the host.
 
@@ -17,9 +17,11 @@ from typing import List, Optional
 
 import torch
 
-from .._shared import bn254_pairing, host_msm
+from .._build import resolve_device
+from ..compat import bn254_pairing as bn
 from ..curves import BN254_G1
 from ..engine import PlonkEngine
+from ..msm.host_msm import host_msm
 from ..msm.msm import msm
 from ..poly.poly import COEFF, LAGRANGE, unwrap
 from .base import Blind
@@ -59,8 +61,9 @@ class ParamsKZG:
 
     @staticmethod
     def setup(k: int, s: Optional[int] = None, rng=None,
-              device="cpu") -> "ParamsKZG":
+              device="cuda") -> "ParamsKZG":
         """Insecure trusted setup (kzg/commitment.rs:64-131) on `device`."""
+        device = resolve_device(device)
         curve = BN254_G1
         F = curve.Fr
         p = F.p
@@ -93,7 +96,6 @@ class ParamsKZG:
             return curve.from_affine_coords(curve.batch_normalize(proj),
                                             curve.is_identity(proj))
 
-        bn = bn254_pairing()
         g2 = bn.g2_to_ints(bn.g2_generator())
         s_g2 = bn.g2_to_ints(bn.g2_scalar_mul(bn.g2_generator(), s))
         return ParamsKZG(k, affine_points(powers_s), affine_points(lag), g2,
@@ -101,7 +103,7 @@ class ParamsKZG:
 
     @staticmethod
     def new(k: int, s: Optional[int] = DEFAULT_S,
-            device="cpu") -> "ParamsKZG":
+            device="cuda") -> "ParamsKZG":
         """Deterministic test params with the reference's default s, so both
         packages commit against one SRS (toxic s retained, insecure)."""
         return ParamsKZG.setup(k, s=s, device=device)
@@ -175,7 +177,7 @@ class MSMKZG:
                  if b is not None]
         if not terms:
             return None
-        return host_msm().host_msm(self.params.curve, [s for s, _ in terms],
+        return host_msm(self.params.curve, [s for s, _ in terms],
                                    [b for _, b in terms])
 
 
@@ -222,10 +224,9 @@ class DualMSM:
             if left is None and right is None:
                 return True
             curve = params.curve
-            out = host_msm().host_msm(curve, [params.s_secret, curve.Fr.p - 1],
+            out = host_msm(curve, [params.s_secret, curve.Fr.p - 1],
                                       [left, right])
             return out is None
-        bn = bn254_pairing()
         return bn.pairing_check([
             (left, params.s_g2),
             (right, (params.g2[0], tuple((-y) % bn.Q for y in params.g2[1]))),

@@ -1,4 +1,4 @@
-"""KZG multiopen, SHPLONK variant (port of halo2_tpu/commit/shplonk.py;
+"""KZG multiopen, SHPLONK variant (port of the JAX reference's commit/shplonk.py;
 poly/kzg/multiopen/shplonk/{prover,verifier}.rs).
 
 Commitments are grouped by their rotation set (first-appearance order of

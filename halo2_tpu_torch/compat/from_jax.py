@@ -10,7 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._build import resolve_device
+from ..commit.ipa import ParamsIPA
 from ..commit.kzg import ParamsKZG
+from ..curves import PALLAS, VESTA
 
 
 def limbs_from_jax(arr) -> torch.Tensor:
@@ -27,10 +30,22 @@ def limbs_to_jax(t: torch.Tensor) -> np.ndarray:
         w.shape[:-1] + (16,)).astype(np.uint32)
 
 
-def params_kzg_from_jax(params, device="cpu") -> ParamsKZG:
+def params_kzg_from_jax(params, device="cuda") -> ParamsKZG:
     """The port's ParamsKZG from a reference ParamsKZG: its g / g_lagrange
     point arrays and its G2 ints, on `device`."""
+    device = resolve_device(device)
     return ParamsKZG(params.k,
                      limbs_from_jax(np.asarray(params.g)).to(device),
                      limbs_from_jax(np.asarray(params.g_lagrange)).to(device),
                      params.g2, params.s_g2, s_secret=params.s_secret)
+
+
+def params_ipa_from_jax(params, device="cuda") -> ParamsIPA:
+    """The port's ParamsIPA from a reference ParamsIPA over Pallas or Vesta:
+    its g / g_lagrange point arrays and its w / u ints, on `device`."""
+    device = resolve_device(device)
+    curve = {c.name: c for c in (PALLAS, VESTA)}[params.curve.name]
+    return ParamsIPA(curve, params.k,
+                     limbs_from_jax(np.asarray(params.g)).to(device),
+                     limbs_from_jax(np.asarray(params.g_lagrange)).to(device),
+                     params.w_aff, params.u_aff)

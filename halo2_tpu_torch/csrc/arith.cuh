@@ -1,13 +1,19 @@
-// Shared BN254 arithmetic for the port's Hopper kernels.
+// Shared field and curve arithmetic for the port's Hopper kernels.
 //
 // Element format: 8 little-endian 32-bit words holding the Montgomery value
 // a * 2^256 mod p (the same R = 2^256 as the JAX reference), canonical < p.
 // Field ops are CIOS Montgomery multiplication over 8 x 32-bit limbs with
 // 64-bit products (IMAD.WIDE on Hopper), modular add and sub; the curve
 // bodies are the Renes-Costello-Batina complete formulas (eprint 2015/1060,
-// Algs 7-9, a = 0, b3 = 9 for BN254 G1) in exactly the operation order of
-// halo2_tpu/curves/pallas_ec.py, so a kernel and its plain PyTorch version
-// produce identical projective coordinates.
+// Algs 7-9, a = 0) in exactly the operation order of the JAX reference's
+// curves/pallas_ec.py, so a kernel and its plain PyTorch version produce
+// identical projective coordinates.
+//
+// Everything is a template over a modulus M (p, -p^-1 mod 2^32, R mod p)
+// and a curve C (its base-field modulus C::Q and its b3 = 3b): BN254 (Fr,
+// Fq, G1 with b3 = 9) and Pasta (Fp, Fq, Pallas over Fp and Vesta over Fq,
+// both with b3 = 15).  The C entry points take a small integer id and
+// dispatch to the instance (`with_field`, `with_curve`).
 #pragma once
 
 #include <cstdint>
@@ -18,8 +24,8 @@ struct Fe {
 };
 
 // Moduli as functions of a constant index: after unrolling, every word is an
-// immediate operand.
-struct FrMod {
+// immediate operand.  p: the modulus; inv: -p^-1 mod 2^32; one: R mod p.
+struct Bn254Fr {
   static __device__ __forceinline__ uint32_t p(int i) {
     switch (i) {
       case 0: return 0xf0000001u; case 1: return 0x43e1f593u;
@@ -29,9 +35,17 @@ struct FrMod {
     }
   }
   static __device__ __forceinline__ uint32_t inv() { return 0xefffffffu; }
+  static __device__ __forceinline__ uint32_t one(int i) {
+    switch (i) {
+      case 0: return 0x4ffffffbu; case 1: return 0xac96341cu;
+      case 2: return 0x9f60cd29u; case 3: return 0x36fc7695u;
+      case 4: return 0x7879462eu; case 5: return 0x666ea36fu;
+      case 6: return 0x9a07df2fu; default: return 0x0e0a77c1u;
+    }
+  }
 };
 
-struct FqMod {
+struct Bn254Fq {
   static __device__ __forceinline__ uint32_t p(int i) {
     switch (i) {
       case 0: return 0xd87cfd47u; case 1: return 0x3c208c16u;
@@ -41,7 +55,6 @@ struct FqMod {
     }
   }
   static __device__ __forceinline__ uint32_t inv() { return 0xe4866389u; }
-  // R mod q: the Montgomery form of 1 (the identity's Y coordinate).
   static __device__ __forceinline__ uint32_t one(int i) {
     switch (i) {
       case 0: return 0xc58f0d9du; case 1: return 0xd35d438du;
@@ -51,6 +64,83 @@ struct FqMod {
     }
   }
 };
+
+struct PastaFp {
+  static __device__ __forceinline__ uint32_t p(int i) {
+    switch (i) {
+      case 0: return 0x00000001u; case 1: return 0x992d30edu;
+      case 2: return 0x094cf91bu; case 3: return 0x224698fcu;
+      case 4: return 0x00000000u; case 5: return 0x00000000u;
+      case 6: return 0x00000000u; default: return 0x40000000u;
+    }
+  }
+  static __device__ __forceinline__ uint32_t inv() { return 0xffffffffu; }
+  static __device__ __forceinline__ uint32_t one(int i) {
+    switch (i) {
+      case 0: return 0xfffffffdu; case 1: return 0x34786d38u;
+      case 2: return 0xe41914adu; case 3: return 0x992c350bu;
+      case 4: return 0xffffffffu; case 5: return 0xffffffffu;
+      case 6: return 0xffffffffu; default: return 0x3fffffffu;
+    }
+  }
+};
+
+struct PastaFq {
+  static __device__ __forceinline__ uint32_t p(int i) {
+    switch (i) {
+      case 0: return 0x00000001u; case 1: return 0x8c46eb21u;
+      case 2: return 0x0994a8ddu; case 3: return 0x224698fcu;
+      case 4: return 0x00000000u; case 5: return 0x00000000u;
+      case 6: return 0x00000000u; default: return 0x40000000u;
+    }
+  }
+  static __device__ __forceinline__ uint32_t inv() { return 0xffffffffu; }
+  static __device__ __forceinline__ uint32_t one(int i) {
+    switch (i) {
+      case 0: return 0xfffffffdu; case 1: return 0x5b2b3e9cu;
+      case 2: return 0xe3420567u; case 3: return 0x992c350bu;
+      case 4: return 0xffffffffu; case 5: return 0xffffffffu;
+      case 6: return 0xffffffffu; default: return 0x3fffffffu;
+    }
+  }
+};
+
+// Curves y^2 = x^3 + b: base-field modulus Q and b3 = 3b.
+struct Bn254G1 {
+  typedef Bn254Fq Q;
+  static constexpr int B3 = 9;
+};
+struct Pallas {
+  typedef PastaFp Q;
+  static constexpr int B3 = 15;
+};
+struct Vesta {
+  typedef PastaFq Q;
+  static constexpr int B3 = 15;
+};
+
+// Field ids of the C entry points: 0 BN254 Fr, 1 BN254 Fq, 2 Pasta Fp,
+// 3 Pasta Fq.  fn is a generic lambda called with a value of the modulus
+// type.
+template <class Fn>
+static inline void with_field(int id, Fn fn) {
+  switch (id) {
+    case 0: fn(Bn254Fr()); break;
+    case 1: fn(Bn254Fq()); break;
+    case 2: fn(PastaFp()); break;
+    default: fn(PastaFq()); break;
+  }
+}
+
+// Curve ids: 0 BN254 G1, 1 Pallas, 2 Vesta.
+template <class Fn>
+static inline void with_curve(int id, Fn fn) {
+  switch (id) {
+    case 0: fn(Bn254G1()); break;
+    case 1: fn(Pallas()); break;
+    default: fn(Vesta()); break;
+  }
+}
 
 // t (8 words) plus hi * 2^256, known < 2p: subtract p once if t >= p.
 template <class M>
@@ -151,25 +241,41 @@ __device__ __forceinline__ void fe_store(uint4* base, long long i, const Fe& v) 
 }
 
 // ---------------------------------------------------------------------------
-// BN254 G1, homogeneous projective (X : Y : Z), identity (0 : 1 : 0).
+// Curves, homogeneous projective (X : Y : Z), identity (0 : 1 : 0).
 // ---------------------------------------------------------------------------
 
 struct Pt {
   Fe x, y, z;
 };
 
-typedef FqMod Q;
-
-// 3b = 9: 9x = 8x + x, the reference's addition chain.
+// x * 3b by the reference's addition chains: 9x = 8x + x (BN254),
+// 15x = 16x - x (Pasta).
+template <class C>
 __device__ __forceinline__ Fe mul_b3(const Fe& x) {
+  typedef typename C::Q Q;
   const Fe x2 = fe_add<Q>(x, x);
   const Fe x4 = fe_add<Q>(x2, x2);
   const Fe x8 = fe_add<Q>(x4, x4);
-  return fe_add<Q>(x8, x);
+  if (C::B3 == 9) return fe_add<Q>(x8, x);
+  return fe_sub<Q>(fe_add<Q>(x8, x8), x);
+}
+
+template <class C>
+__device__ __forceinline__ Pt pt_identity() {
+  Pt r;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    r.x.w[i] = 0;
+    r.y.w[i] = C::Q::one(i);
+    r.z.w[i] = 0;
+  }
+  return r;
 }
 
 // Complete addition, RC15 Alg 7 (pallas_ec._add_body_ec).
+template <class C>
 __device__ __forceinline__ Pt ec_add_body(const Pt& P, const Pt& R) {
+  typedef typename C::Q Q;
   Fe t0 = fe_mul<Q>(P.x, R.x);
   Fe t1 = fe_mul<Q>(P.y, R.y);
   Fe t2 = fe_mul<Q>(P.z, R.z);
@@ -180,10 +286,10 @@ __device__ __forceinline__ Pt ec_add_body(const Pt& P, const Pt& R) {
   Fe y3 = fe_mul<Q>(fe_add<Q>(P.x, P.z), fe_add<Q>(R.x, R.z));
   y3 = fe_sub<Q>(y3, fe_add<Q>(t0, t2));
   t0 = fe_add<Q>(fe_add<Q>(t0, t0), t0);
-  t2 = mul_b3(t2);
+  t2 = mul_b3<C>(t2);
   Fe z3 = fe_add<Q>(t1, t2);
   t1 = fe_sub<Q>(t1, t2);
-  y3 = mul_b3(y3);
+  y3 = mul_b3<C>(y3);
   Pt out;
   out.x = fe_sub<Q>(fe_mul<Q>(t3, t1), fe_mul<Q>(t4, y3));
   out.y = fe_add<Q>(fe_mul<Q>(y3, t0), fe_mul<Q>(t1, z3));
@@ -193,8 +299,10 @@ __device__ __forceinline__ Pt ec_add_body(const Pt& P, const Pt& R) {
 
 // Complete mixed addition, RC15 Alg 8 (pallas_ec._madd_body_ec): P plus the
 // affine (x2, y2); lanes with q_inf pass P through.
+template <class C>
 __device__ __forceinline__ Pt ec_madd_body(const Pt& P, const Fe& x2,
                                            const Fe& y2, bool q_inf) {
+  typedef typename C::Q Q;
   Fe t0 = fe_mul<Q>(P.x, x2);
   Fe t1 = fe_mul<Q>(P.y, y2);
   Fe t3 = fe_mul<Q>(fe_add<Q>(x2, y2), fe_add<Q>(P.x, P.y));
@@ -202,10 +310,10 @@ __device__ __forceinline__ Pt ec_madd_body(const Pt& P, const Fe& x2,
   Fe t4 = fe_add<Q>(fe_mul<Q>(y2, P.z), P.y);
   Fe y3 = fe_add<Q>(fe_mul<Q>(x2, P.z), P.x);
   t0 = fe_add<Q>(fe_add<Q>(t0, t0), t0);
-  Fe t2 = mul_b3(P.z);
+  Fe t2 = mul_b3<C>(P.z);
   Fe z3 = fe_add<Q>(t1, t2);
   t1 = fe_sub<Q>(t1, t2);
-  y3 = mul_b3(y3);
+  y3 = mul_b3<C>(y3);
   Pt out;
   out.x = fe_sub<Q>(fe_mul<Q>(t3, t1), fe_mul<Q>(t4, y3));
   out.y = fe_add<Q>(fe_mul<Q>(y3, t0), fe_mul<Q>(t1, z3));
@@ -214,14 +322,16 @@ __device__ __forceinline__ Pt ec_madd_body(const Pt& P, const Fe& x2,
 }
 
 // Complete doubling, RC15 Alg 9 (pallas_ec._double_body).
+template <class C>
 __device__ __forceinline__ Pt ec_double_body(const Pt& P) {
+  typedef typename C::Q Q;
   Fe t0 = fe_mul<Q>(P.y, P.y);
   Fe z3 = fe_add<Q>(t0, t0);
   z3 = fe_add<Q>(z3, z3);
   z3 = fe_add<Q>(z3, z3);
   Fe t1 = fe_mul<Q>(P.y, P.z);
   Fe t2 = fe_mul<Q>(P.z, P.z);
-  t2 = mul_b3(t2);
+  t2 = mul_b3<C>(t2);
   Fe x3 = fe_mul<Q>(t2, z3);
   Fe y3 = fe_add<Q>(t0, t2);
   z3 = fe_mul<Q>(t1, z3);
@@ -251,6 +361,26 @@ __device__ __forceinline__ void pt_store(uint4* base, long long i, const Pt& v) 
   fe_store(base, 3 * i, v.x);
   fe_store(base, 3 * i + 1, v.y);
   fe_store(base, 3 * i + 2, v.z);
+}
+
+// Affine point from an 18-word stream row (x words, y words, infinity flag,
+// pad) at column `lane` of a (rows, 18, lanes) table; y negated when neg.
+template <class C>
+__device__ __forceinline__ void row_load(const uint32_t* row, long long stride,
+                                         bool neg, Fe& x, Fe& y, bool& inf) {
+  typedef typename C::Q Q;
+#pragma unroll
+  for (int q = 0; q < 8; q++) {
+    x.w[q] = row[q * stride];
+    y.w[q] = row[(8 + q) * stride];
+  }
+  inf = (row[16 * stride] & 1u) != 0;
+  if (neg) {
+    Fe zero;
+#pragma unroll
+    for (int i = 0; i < 8; i++) zero.w[i] = 0;
+    y = fe_sub<Q>(zero, y);
+  }
 }
 
 // Grid for an elementwise launch: enough blocks to cover n, capped so a

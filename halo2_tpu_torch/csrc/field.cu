@@ -1,6 +1,7 @@
-// Kernel A: elementwise BN254 field mul / add / sub.
+// Kernel A: elementwise field mul / add / sub (BN254 Fr and Fq, Pasta Fp and
+// Fq).
 //
-// Replaces halo2_tpu/fields/pallas_ops.py::_binop_pallas (and its limb-major
+// Replaces the JAX reference's fields/pallas_ops.py::_binop_pallas (and its limb-major
 // twin _binop_pallas_lm): the bodies _mont_mul_body, _add_body, _sub_body and
 // _cond_sub_p.  On the TPU the limb layout (limb-last vs limb-major) decided
 // which wrapper ran; here an element is 8 contiguous 32-bit words, so one
@@ -12,7 +13,7 @@
 // thread per element, 16-byte vector loads so a warp moves whole 32-byte
 // sectors, and a grid-stride loop.  Nothing is kept between launches; fusing
 // chains of ops into one pass is later work.
-#include "bn254.cuh"
+#include "arith.cuh"
 
 template <class M, int MODE>
 __global__ void k_field_binop(const uint4* __restrict__ a,
@@ -49,20 +50,16 @@ static void launch_binop(int mode, const uint4* a, const uint4* b, uint4* out,
   }
 }
 
-// mode: 0 mul, 1 add, 2 sub.  field: 0 = BN254 Fr, 1 = BN254 Fq.
+// mode: 0 mul, 1 add, 2 sub.  field: the id of arith.cuh's with_field.
 // a, b, out: n elements of 8 words each.  Returns cudaGetLastError().
 extern "C" int h2_field_binop(int mode, int field, const void* a,
                               const void* b, void* out, long long n,
                               void* stream) {
   if (n > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (field == 0) {
-      launch_binop<FrMod>(mode, (const uint4*)a, (const uint4*)b,
-                          (uint4*)out, n, s);
-    } else {
-      launch_binop<FqMod>(mode, (const uint4*)a, (const uint4*)b,
-                          (uint4*)out, n, s);
-    }
+    with_field(field, [&](auto m) {
+      launch_binop<decltype(m)>(mode, (const uint4*)a, (const uint4*)b,
+                                (uint4*)out, n, (cudaStream_t)stream);
+    });
   }
   return (int)cudaGetLastError();
 }

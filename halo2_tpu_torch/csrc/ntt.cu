@@ -1,6 +1,7 @@
-// Kernel C: base Stockham radix-2 NTT over BN254 Fr, in shared memory.
+// Kernel C: base Stockham radix-2 NTT over BN254 Fr, Pasta Fp or Pasta Fq,
+// in shared memory.
 //
-// Replaces halo2_tpu/ntt/fused.py::_base_ntt: a self-sorting (Stockham)
+// Replaces the JAX reference's ntt/fused.py::_base_ntt: a self-sorting (Stockham)
 // radix-2 transform with natural order in and out and per-stage EXPANDED
 // twiddles (row t holds w^(r * floor(j / r)) for j < m/2, r = 2^t).  Per
 // stage: split the axis into halves a / b, s = a + b, d = (a - b) * w (the
@@ -21,8 +22,9 @@
 // halves the number of such passes for 2^18..2^20.  A strided element is 32
 // contiguous bytes, i.e. one whole sector, so the strided loads waste no
 // DRAM bandwidth.
-#include "bn254.cuh"
+#include "arith.cuh"
 
+template <class M>
 __global__ void k_ntt_base(const uint4* __restrict__ x, uint4* __restrict__ out,
                            const uint4* __restrict__ table, int log_m,
                            long long inner) {
@@ -49,10 +51,10 @@ __global__ void k_ntt_base(const uint4* __restrict__ x, uint4* __restrict__ out,
     b.w[0] = sm[2 * k].x; b.w[1] = sm[2 * k].y; b.w[2] = sm[2 * k].z;
     b.w[3] = sm[2 * k].w; b.w[4] = sm[2 * k + 1].x; b.w[5] = sm[2 * k + 1].y;
     b.w[6] = sm[2 * k + 1].z; b.w[7] = sm[2 * k + 1].w;
-    const Fe s = fe_add<FrMod>(a, b);
-    Fe d = fe_sub<FrMod>(a, b);
+    const Fe s = fe_add<M>(a, b);
+    Fe d = fe_sub<M>(a, b);
     if (t < log_m - 1) {
-      d = fe_mul<FrMod>(d, fe_load(table, (long long)t * half + j));
+      d = fe_mul<M>(d, fe_load(table, (long long)t * half + j));
     }
     __syncthreads();
     const int r = 1 << t;
@@ -74,15 +76,20 @@ __global__ void k_ntt_base(const uint4* __restrict__ x, uint4* __restrict__ out,
 }
 
 // x, out: (outer, 2^log_m, inner) elements; table: (max(log_m,1), m/2)
-// elements.  1 <= log_m <= 10.  Returns cudaGetLastError().
-extern "C" int h2_ntt_base(const void* x, void* out, const void* table,
-                           int log_m, long long outer, long long inner,
-                           void* stream) {
+// elements.  1 <= log_m <= 10; field: the id of arith.cuh's with_field.
+// Returns cudaGetLastError().
+extern "C" int h2_ntt_base(int field, const void* x, void* out,
+                           const void* table, int log_m, long long outer,
+                           long long inner, void* stream) {
   if (outer > 0 && inner > 0) {
     const int m = 1 << log_m;
     const long long blocks = outer * inner;
-    k_ntt_base<<<(unsigned int)blocks, m / 2, m * 32, (cudaStream_t)stream>>>(
-        (const uint4*)x, (uint4*)out, (const uint4*)table, log_m, inner);
+    with_field(field, [&](auto f) {
+      k_ntt_base<decltype(f)>
+          <<<(unsigned int)blocks, m / 2, m * 32, (cudaStream_t)stream>>>(
+              (const uint4*)x, (uint4*)out, (const uint4*)table, log_m,
+              inner);
+    });
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
 from .curve import Curve
-from .constants import BN254_G1
+from .constants import BN254_G1, PALLAS, VESTA
 
-__all__ = ["Curve", "BN254_G1"]
+__all__ = ["Curve", "BN254_G1", "PALLAS", "VESTA"]

@@ -1,7 +1,7 @@
-"""Kernel B (csrc/ec.cu): BN254 G1 complete add / mixed add / double, and
-their plain PyTorch versions.
+"""Kernel B (csrc/ec.cu): complete add / mixed add / double on BN254 G1,
+Pallas and Vesta, and their plain PyTorch versions.
 
-Replaces halo2_tpu/curves/pallas_ec.py (`ec_add`, `ec_madd`, `ec_double`).
+Replaces the JAX reference's curves/pallas_ec.py (`ec_add`, `ec_madd`, `ec_double`).
 Points are (..., 3, 8) int32 projective words, affine operands (..., 2, 8).
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel.
@@ -9,7 +9,9 @@ tensors it launches the kernel.
 The plain versions follow the reference formulas (RC15 Algs 7-9) term by
 term in int64 limbs, grouping independent multiplies into one batched
 `Limbs.mul`; every intermediate is a canonical field element, so the
-grouping does not change a single output word.
+grouping does not change a single output word.  For the same reason the
+small CPU batches that `cuda_ops.on_ints` picks run the same formulas over
+python ints (`_*_ints`).
 """
 
 from __future__ import annotations
@@ -17,10 +19,12 @@ from __future__ import annotations
 import torch
 
 from .._build import I32, I64, P, Kernel, stream_of
-from ..fields.cuda_ops import NWORDS, chunked, limbs_for, to_limbs, to_words
+from ..fields.cuda_ops import (NWORDS, chunked, ints, limbs_for, on_ints,
+                               to_limbs, to_words, words)
 
-_EC_CHUNK = 1 << 9         # points per plain-version step (cache-sized)
-_EC_ARGS = [I32, P, P, P, P, I64, P]     # op, p, q, q_inf, out, n, stream
+_EC_CHUNK = 1 << 9         # points per CPU plain-version step (cache-sized)
+_EC_ARGS = [I32, I32, P, P, P, P, I64, P]  # op, curve, p, q, q_inf, out, n,
+                                          # stream
 _add_kernel = Kernel("h2_ec_op", _EC_ARGS, name="h2_ec_add")
 _madd_kernel = Kernel("h2_ec_op", _EC_ARGS, name="h2_ec_madd")
 _double_kernel = Kernel("h2_ec_op", _EC_ARGS, name="h2_ec_double")
@@ -34,7 +38,7 @@ def _st(*xs):
     return torch.stack(xs, dim=-2)
 
 
-def add_limbs(L, P, Q):
+def add_limbs(L, P, Q, b3: int):
     """Complete projective addition (RC15 Alg 7, a = 0) on (..., 3, 16)."""
     X1, Y1, Z1 = P.unbind(-2)
     X2, Y2, Z2 = Q.unbind(-2)
@@ -44,7 +48,7 @@ def add_limbs(L, P, Q):
     u = L.add(_st(t0, t1, t0), _st(t1, t2, t2))
     t3, t4, Y3 = L.sub(m, u).unbind(-2)
     t0 = L.add(L.add(t0, t0), t0)
-    t2, Y3 = L.mul_b3(_st(t2, Y3)).unbind(-2)
+    t2, Y3 = L.mul_b3(_st(t2, Y3), b3).unbind(-2)
     Z3 = L.add(t1, t2)
     t1 = L.sub(t1, t2)
     return _combine(L, t0, t1, t3, t4, Y3, Z3)
@@ -58,7 +62,7 @@ def _combine(L, t0, t1, t3, t4, Y3, Z3):
     return torch.cat([X3.unsqueeze(-2), YZ], dim=-2)
 
 
-def madd_limbs(L, P, Qa, q_inf=None):
+def madd_limbs(L, P, Qa, b3: int, q_inf=None):
     """Complete mixed addition (RC15 Alg 8): P (..., 3, 16) + affine
     Qa (..., 2, 16); lanes flagged in q_inf pass P through."""
     X1, Y1, Z1 = P.unbind(-2)
@@ -69,7 +73,7 @@ def madd_limbs(L, P, Qa, q_inf=None):
     u01, t4, Y3 = L.add(_st(t0, y2z1, x2z1), _st(t1, Y1, X1)).unbind(-2)
     t3 = L.sub(t3, u01)
     t0 = L.add(L.add(t0, t0), t0)
-    t2, Y3 = L.mul_b3(_st(Z1, Y3)).unbind(-2)
+    t2, Y3 = L.mul_b3(_st(Z1, Y3), b3).unbind(-2)
     Z3 = L.add(t1, t2)
     t1 = L.sub(t1, t2)
     out = _combine(L, t0, t1, t3, t4, Y3, Z3)
@@ -78,14 +82,14 @@ def madd_limbs(L, P, Qa, q_inf=None):
     return out
 
 
-def double_limbs(L, P):
+def double_limbs(L, P, b3: int):
     """Complete doubling (RC15 Alg 9, a = 0) on (..., 3, 16)."""
     X, Y, Z = P.unbind(-2)
     t0, t1, t2, xy = L.mul(_st(Y, Y, Z, X), _st(Y, Z, Z, Y)).unbind(-2)
     Z3 = L.add(t0, t0)
     Z3 = L.add(Z3, Z3)
     Z3 = L.add(Z3, Z3)
-    t2 = L.mul_b3(t2)
+    t2 = L.mul_b3(t2, b3)
     X3, Z3 = L.mul(_st(t2, t1), _st(Z3, Z3)).unbind(-2)
     Y3 = L.add(t0, t2)
     t1 = L.add(t2, t2)
@@ -98,38 +102,120 @@ def double_limbs(L, P):
 
 
 # ----------------------------------------------------------------------
+# the same bodies over python ints (small CPU batches)
+# ----------------------------------------------------------------------
+
+def _combine_ints(p, r, t0, t1, t3, t4, y3, z3):
+    """X3 = t3 t1 - t4 Y3, Y3 = Y3 t0 + t1 Z3, Z3 = Z3 t4 + t0 t3, each
+    product a Montgomery product (times R^-1)."""
+    return ((t3 * t1 - t4 * y3) * r % p, (y3 * t0 + t1 * z3) * r % p,
+            (z3 * t4 + t0 * t3) * r % p)
+
+
+def _add_ints(curve, P, Q):
+    F = curve.Fq
+    p, r, b3 = F.p, F.R_inv, curve.b3
+    a, b = ints(P), ints(Q)
+    out = []
+    for i in range(0, len(a), 3):
+        x1, y1, z1 = a[i:i + 3]
+        x2, y2, z2 = b[i:i + 3]
+        t0, t1, t2 = x1 * x2 * r % p, y1 * y2 * r % p, z1 * z2 * r % p
+        t3 = ((x1 + y1) * (x2 + y2) * r - t0 - t1) % p
+        t4 = ((y1 + z1) * (y2 + z2) * r - t1 - t2) % p
+        y3 = ((x1 + z1) * (x2 + z2) * r - t0 - t2) * b3 % p
+        t2 = t2 * b3 % p
+        out += _combine_ints(p, r, 3 * t0, t1 - t2, t3, t4, y3, t1 + t2)
+    return words(out, P.shape)
+
+
+def _madd_ints(curve, P, Qa, q_inf):
+    F = curve.Fq
+    p, r, b3 = F.p, F.R_inv, curve.b3
+    a, b = ints(P), ints(Qa)
+    skip = q_inf.reshape(-1).tolist()
+    out = []
+    for j, i in enumerate(range(0, len(a), 3)):
+        x1, y1, z1 = a[i:i + 3]
+        if skip[j]:
+            out += (x1, y1, z1)
+            continue
+        x2, y2 = b[2 * j:2 * j + 2]
+        t0, t1 = x1 * x2 * r % p, y1 * y2 * r % p
+        t3 = ((x2 + y2) * (x1 + y1) * r - t0 - t1) % p
+        t4 = (y2 * z1 * r + y1) % p
+        y3 = (x2 * z1 * r + x1) * b3 % p
+        t2 = z1 * b3 % p
+        out += _combine_ints(p, r, 3 * t0, t1 - t2, t3, t4, y3, t1 + t2)
+    return words(out, P.shape)
+
+
+def _double_ints(curve, P):
+    F = curve.Fq
+    p, r, b3 = F.p, F.R_inv, curve.b3
+    a = ints(P)
+    out = []
+    for i in range(0, len(a), 3):
+        x, y, z = a[i:i + 3]
+        t0 = y * y * r % p
+        t1 = y * z * r % p
+        t2 = z * z * r * b3 % p
+        z3 = 8 * t0
+        y3 = t0 + t2
+        t0 = t0 - 3 * t2
+        out += ((2 * t0 * x * y * r * r) % p,
+                (t2 * z3 + t0 * y3) * r % p,
+                t1 * z3 * r % p)
+    return words(out, P.shape)
+
+
+# ----------------------------------------------------------------------
 # plain versions on words
 # ----------------------------------------------------------------------
 
+def _chunk(P, n: int) -> int:
+    """Points per limb step: cache-sized on the CPU; the whole batch on the
+    card, where small steps are bound by launch overhead."""
+    return _EC_CHUNK if P.device.type == "cpu" else max(n, 1)
+
+
 def ec_add_plain(curve, P, Q):
-    L = limbs_for(curve.Fq, P.device)
     P, Q = torch.broadcast_tensors(P, Q)
+    if on_ints(P, points=True):
+        return _add_ints(curve, P, Q)
+    L = limbs_for(curve.Fq, P.device)
     shape = P.shape
     n = P.numel() // (3 * NWORDS)
     out = chunked(lambda p, q: to_words(add_limbs(L, to_limbs(p),
-                                                  to_limbs(q))),
+                                                  to_limbs(q), curve.b3)),
                   n, P.reshape(n, 3, NWORDS), Q.reshape(n, 3, NWORDS),
-                  chunk=_EC_CHUNK)
+                  chunk=_chunk(P, n))
     return out.reshape(shape)
 
 
 def ec_madd_plain(curve, P, Qa, q_inf):
+    if on_ints(P, points=True):
+        return _madd_ints(curve, P, Qa, q_inf)
     L = limbs_for(curve.Fq, P.device)
     shape = P.shape
     n = P.numel() // (3 * NWORDS)
     out = chunked(lambda p, q, i: to_words(madd_limbs(L, to_limbs(p),
-                                                      to_limbs(q), i)),
+                                                      to_limbs(q), curve.b3,
+                                                      i)),
                   n, P.reshape(n, 3, NWORDS), Qa.reshape(n, 2, NWORDS),
-                  q_inf.reshape(n), chunk=_EC_CHUNK)
+                  q_inf.reshape(n), chunk=_chunk(P, n))
     return out.reshape(shape)
 
 
 def ec_double_plain(curve, P):
+    if on_ints(P, points=True):
+        return _double_ints(curve, P)
     L = limbs_for(curve.Fq, P.device)
     shape = P.shape
     n = P.numel() // (3 * NWORDS)
-    out = chunked(lambda p: to_words(double_limbs(L, to_limbs(p))),
-                  n, P.reshape(n, 3, NWORDS), chunk=_EC_CHUNK)
+    out = chunked(lambda p: to_words(double_limbs(L, to_limbs(p),
+                                                  curve.b3)),
+                  n, P.reshape(n, 3, NWORDS), chunk=_chunk(P, n))
     return out.reshape(shape)
 
 
@@ -158,8 +244,9 @@ def ec_add(curve, P, Q):
     P = P.contiguous()
     Q = Q.contiguous()
     out = torch.empty_like(P)
-    _add_kernel.launch(0, P.data_ptr(), Q.data_ptr(), None, out.data_ptr(),
-                      out.numel() // (3 * NWORDS), stream_of(out))
+    _add_kernel.launch(0, curve.kernel_id, P.data_ptr(), Q.data_ptr(), None,
+                       out.data_ptr(), out.numel() // (3 * NWORDS),
+                       stream_of(out))
     return out
 
 
@@ -183,9 +270,9 @@ def ec_madd(curve, P, Qa, q_inf=None):
     Qa = Qa.contiguous()
     q_inf = q_inf.contiguous()
     out = torch.empty_like(P)
-    _madd_kernel.launch(1, P.data_ptr(), Qa.data_ptr(), q_inf.data_ptr(),
-                      out.data_ptr(), out.numel() // (3 * NWORDS),
-                      stream_of(out))
+    _madd_kernel.launch(1, curve.kernel_id, P.data_ptr(), Qa.data_ptr(),
+                        q_inf.data_ptr(), out.data_ptr(),
+                        out.numel() // (3 * NWORDS), stream_of(out))
     return out
 
 
@@ -196,6 +283,7 @@ def ec_double(curve, P):
     _check(P)
     P = P.contiguous()
     out = torch.empty_like(P)
-    _double_kernel.launch(2, P.data_ptr(), None, None, out.data_ptr(),
-                      out.numel() // (3 * NWORDS), stream_of(out))
+    _double_kernel.launch(2, curve.kernel_id, P.data_ptr(), None, None,
+                          out.data_ptr(), out.numel() // (3 * NWORDS),
+                          stream_of(out))
     return out

@@ -1,5 +1,5 @@
 """Batched short-Weierstrass (a = 0) curve arithmetic on tensors
-(port of halo2_tpu/curves/curve.py, BN254 G1).
+(port of the JAX reference's curves/curve.py: BN254 G1, Pallas, Vesta).
 
 A batch of points is an (..., 3, 8) int32 tensor — X, Y, Z in Montgomery
 words — in homogeneous projective coordinates with the complete
@@ -15,15 +15,18 @@ from . import cuda_ec
 
 
 class Curve:
-    """y^2 = x^3 + b over base field Fq, with scalar field Fr (odd order)."""
+    """y^2 = x^3 + b over base field Fq, with scalar field Fr (odd order).
+    `kernel_id` names the curve in the CUDA sources (0 BN254 G1, 1 Pallas,
+    2 Vesta)."""
 
-    def __init__(self, name: str, Fq: Field, Fr: Field, b: int, gen_xy):
+    def __init__(self, name: str, Fq: Field, Fr: Field, b: int, gen_xy,
+                 kernel_id: int):
         self.name = name
         self.Fq = Fq
         self.Fr = Fr
         self.b = b
         self.b3 = (3 * b) % Fq.p
-        assert self.b3 == 9, "kernel B is built for BN254 G1 (b3 = 9)"
+        self.kernel_id = kernel_id
         self.gen_x, self.gen_y = gen_xy
         assert (self.gen_y ** 2 - self.gen_x ** 3 - b) % Fq.p == 0
 
@@ -186,14 +189,28 @@ class Curve:
         return (x, y)
 
     def _sqrt_int(self, a: int):
-        """Square root for p = 3 mod 4 (BN254 Fq)."""
+        """Square root over python ints, None for a non-residue: one power
+        for p = 3 mod 4 (BN254 Fq), Tonelli-Shanks otherwise (Pasta)."""
         p = self.Fq.p
         if a == 0:
             return 0
         if pow(a, (p - 1) // 2, p) != 1:
             return None
-        assert p % 4 == 3
-        return pow(a, (p + 1) // 4, p)
+        if p % 4 == 3:
+            return pow(a, (p + 1) // 4, p)
+        S, t = self.Fq.S, self.Fq.t_odd
+        M, c = S, pow(self.Fq.generator, t, p)
+        t_, R = pow(a, t, p), pow(a, (t + 1) // 2, p)
+        while t_ != 1:
+            i, tmp = 0, t_
+            while tmp != 1:
+                tmp = tmp * tmp % p
+                i += 1
+            b = pow(c, 1 << (M - i - 1), p)
+            M, c = i, b * b % p
+            t_ = t_ * c % p
+            R = R * b % p
+        return R
 
     def __hash__(self):
         return hash((self.name, self.Fq.p, self.b))

@@ -1,10 +1,11 @@
-"""Acceleration-engine seam (port of halo2_tpu/engine.py; the reference's
+"""Acceleration-engine seam (port of the JAX reference's engine.py; the reference's
 ZAL layer, halo2_middleware/src/zal.rs:57-243).
 
 `H2cEngine` runs each MSM as it comes.  `GpuMsmEngine` replaces the TPU
 engine: fixed bases (the SRS and its Lagrange form) become device-resident
-`StreamMSM` descriptors, built once and reused by every commitment; it is
-the engine `ParamsKZG` starts with.  Two deliberate differences from the
+`StreamMSM` descriptors, built once and reused by every commitment: a baked
+table (kernel D) up to k = 18, the unbaked n-row table (kernel 8) from
+k = 19.  It is the engine `ParamsKZG` and `ParamsIPA` start with.  Two deliberate differences from the
 reference engine: there is no window-width option (the stream width is
 `STREAM_C`), and the descriptor cache is bounded.
 """
@@ -33,12 +34,12 @@ class H2cEngine:
 
 
 class GpuMsmEngine(H2cEngine):
-    """Engine with device-resident fixed-base descriptors (kernel D).
+    """Engine with device-resident fixed-base descriptors (kernels D, 8).
 
     The cache maps id(bases) to (bases, descriptor) and keeps the bases
     alive, so a recycled id can never serve a stale table; at most
     `max_descriptors` tables are held (least recently used first out).  A
-    KZG prover needs two: [s^i]G and its Lagrange form."""
+    prover needs two: g (or [s^i]G) and its Lagrange form."""
 
     def __init__(self, max_descriptors: int = 2):
         self.max_descriptors = max_descriptors

@@ -1,7 +1,7 @@
 """Kernel A (csrc/field.cu): elementwise field mul / add / sub, its plain
 PyTorch version, and the int64 limb arithmetic every plain version uses.
 
-Replaces halo2_tpu/fields/pallas_ops.py (`_binop_pallas`,
+Replaces the JAX reference's fields/pallas_ops.py (`_binop_pallas`,
 `_binop_pallas_lm`).  Elements are (..., 8) int32 tensors holding the u32
 bit patterns of the Montgomery value.  The wrapper takes the plain version
 only for a tensor on the CPU; for a CUDA tensor it launches the kernel.
@@ -11,10 +11,15 @@ add, shift and compare, and `>>` on int32 is arithmetic.  A limb product is
 < 2^32 and a column of 16 of them < 2^36, so every intermediate stays far
 inside int64; the column sums are float64 matrix products, exact because
 every partial sum is an integer below 2^53.
+
+Small CPU batches take the same formulas over python ints instead; the one
+rule that picks between the two is `on_ints` below, used by kernel A's and
+kernel B's plain versions (and so by every plain version built on them).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as nnf
 
@@ -26,7 +31,27 @@ NLIMBS = 16
 MASK = 0xFFFF
 _PLAIN_CHUNK = 1 << 16      # elements per plain-version step on big inputs
 
+# The plain versions' one selection rule.  Their int64-limb code is the
+# plain PyTorch version that the card's kernels are held against; a CPU batch
+# of at most INT_ELEMS field elements (kernel A) or INT_POINTS points (kernel
+# B) runs the same formulas over python ints, because at that size the limbs
+# are bound by the overhead of their many small tensor ops.  Both give the
+# canonical residue, so the output words are equal; the CPU tests run every
+# plain-version case on both sides of the rule.
+INT_ELEMS = 1 << 10
+INT_POINTS = 1 << 11
+
 _binop_kernel = Kernel("h2_field_binop", [I32, I32, P, P, P, I64, P])
+
+
+def on_ints(t: torch.Tensor, points: bool = False) -> bool:
+    """True where a plain version computes over python ints (see
+    INT_ELEMS): t holds (..., 8) field elements or (..., 3, 8) points."""
+    if t.device.type != "cpu":
+        return False
+    if points:
+        return t.numel() <= 3 * NWORDS * INT_POINTS
+    return t.numel() <= NWORDS * INT_ELEMS
 
 
 # ----------------------------------------------------------------------
@@ -47,6 +72,19 @@ def to_words(l: torch.Tensor) -> torch.Tensor:
 
 def int_to_limbs(x: int) -> list:
     return [(x >> (16 * i)) & MASK for i in range(NLIMBS)]
+
+
+def ints(w: torch.Tensor) -> list:
+    """CPU (..., 8) int32 words -> flat list of python ints."""
+    b = w.contiguous().numpy().tobytes()
+    return [int.from_bytes(b[i:i + 32], "little")
+            for i in range(0, len(b), 32)]
+
+
+def words(vals, shape) -> torch.Tensor:
+    """python ints < 2^256 -> CPU int32 words of `shape`."""
+    buf = b"".join(v.to_bytes(32, "little") for v in vals)
+    return torch.from_numpy(np.frombuffer(buf, np.int32).copy()).reshape(shape)
 
 
 # ----------------------------------------------------------------------
@@ -132,11 +170,16 @@ class Limbs:
         f = _norm(d + self.p17)
         return torch.where(d[..., -1:] < 0, f, d)[..., :NLIMBS]
 
-    def mul_b3(self, x):
-        """x * 3b for b3 = 9 (BN254 G1), the reference's chain 8x + x."""
+    def mul_b3(self, x, b3: int):
+        """x * 3b by the reference's chains: 9x = 8x + x (BN254 G1) and
+        15x = 16x - x (Pasta)."""
         x2 = self.add(x, x)
         x4 = self.add(x2, x2)
-        return self.add(self.add(x4, x4), x)
+        x8 = self.add(x4, x4)
+        if b3 == 9:
+            return self.add(x8, x)
+        assert b3 == 15, f"no addition chain for b3 = {b3}"
+        return self.sub(self.add(x8, x8), x)
 
 
 _LIMBS: dict = {}
@@ -163,10 +206,25 @@ def chunked(fn, n: int, *arrays, chunk: int = _PLAIN_CHUNK):
 # kernel A
 # ----------------------------------------------------------------------
 
+def _binop_ints(F, mode: int, a, b):
+    p = F.p
+    x, y = ints(a), ints(b)
+    if mode == MUL:
+        r = F.R_inv
+        out = [u * v * r % p for u, v in zip(x, y)]
+    elif mode == ADD:
+        out = [(u + v) % p for u, v in zip(x, y)]
+    else:
+        out = [(u - v) % p for u, v in zip(x, y)]
+    return words(out, a.shape)
+
+
 def binop_plain(F, mode: int, a, b):
     """Plain PyTorch version of kernel A on broadcast (..., 8) words."""
     a, b = torch.broadcast_tensors(a, b)
     shape = a.shape
+    if on_ints(a):
+        return _binop_ints(F, mode, a, b)
     L = limbs_for(F, a.device)
     op = (L.mul, L.add, L.sub)[mode]
 

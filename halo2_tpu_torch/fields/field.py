@@ -1,4 +1,4 @@
-"""Prime-field arithmetic on PyTorch tensors (port of halo2_tpu/fields/field.py).
+"""Prime-field arithmetic on PyTorch tensors (port of the JAX reference's fields/field.py).
 
 An element is an (..., 8) int32 tensor: the u32 bit patterns of the
 Montgomery value a * 2^256 mod p, little-endian words, canonical (< p).
@@ -34,8 +34,8 @@ class Field:
     """A prime field with per-device constants and batched tensor ops.
 
     The host-side constants mirror the reference's `Field` (ROOT_OF_UNITY,
-    DELTA, ZETA, TWO_INV, S).  `kernel_id` names the modulus kernel A is
-    compiled for (0 = BN254 Fr, 1 = BN254 Fq)."""
+    DELTA, ZETA, TWO_INV, S).  `kernel_id` names the modulus in the CUDA
+    sources (0 BN254 Fr, 1 BN254 Fq, 2 Pasta Fp, 3 Pasta Fq)."""
 
     def __init__(self, name: str, modulus: int, generator: int,
                  zeta: int = None, kernel_id: int = None):

@@ -1,13 +1,47 @@
-"""Signed-digit windows and the weighted bucket fold (the parts of
-halo2_tpu/msm/bucket_scan.py that the fixed-base stream MSM uses)."""
+"""Bucket machinery of the MSMs (port of the JAX reference's
+msm/bucket_scan.py): signed-digit windows, the weighted bucket fold, the
+Horner combine over windows, and the variable-base MSM `msm_variable` on
+kernel 9 (csrc/scan.cu), the segmented scan over a key-sorted stream.
+
+Variable-base pipeline (the reference's `best_multiexp`):
+
+  digits --torch.sort (stable)--> one run of elements per bucket key
+         --segmented scan (kernel 9)--> per-lane final partial sums
+         --recursive scan over the lane sums--> per-key bucket sums
+         --tails: the run pieces that end inside a lane, re-summed
+         --weighted fold per window, Horner over windows
+
+A lane owns `block` consecutive sorted elements.  A run that ends on a lane
+boundary surfaces as that lane's final; the piece of a run that ends inside
+a lane (its "tail", at most `block` elements) is gathered and summed by one
+more scan, so no accumulator trace is ever stored.  The sort and the
+gathers stay outside the kernel, as `lax.sort` and `jnp.take` are outside
+the Pallas kernel in the reference.
+
+Affine stream elements are 18-word rows (x words, y words, infinity flag,
+pad), the stream MSM's row format; on the card a row gather moves 72 whole
+bytes, so the TPU's tile padding (`pad_width`) has no counterpart.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from .._build import I32, I64, P, Kernel, stream_of
+from ..curves.cuda_ec import ec_add_plain, ec_madd_plain
 from ..curves.curve import Curve
-from .msm import point_tree_sum
+from ..fields.cuda_ops import NWORDS, SUB, binop_plain
 
+ROW_WORDS = 2 * NWORDS + 2        # x words, y words, infinity flag, pad
+SENTINEL_KEY = 1 << 30            # pads a stream: sorts after every bucket
+PROJECTIVE, AFFINE, PACKED = 0, 1, 2   # scan modes (csrc/scan.cu)
+
+_scan_kernel = Kernel("h2_scan_level", [I32, I32, P, P, P, P, I32, I64, P])
+
+
+# ----------------------------------------------------------------------
+# digits, folds and sums
+# ----------------------------------------------------------------------
 
 def n_windows_for(Fr, c: int) -> int:
     """Windows of the signed-digit decomposition: c * nw >= bits + 2, so the
@@ -23,7 +57,9 @@ def _signed_digits(Fr, scalars_mont, c: int):
     w = Fr.from_mont(scalars_mont).to(torch.int64) & 0xFFFFFFFF
     n = w.shape[0]
     limbs = torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(n, 16)
-    limbs = torch.cat([limbs, torch.zeros_like(limbs[:, :1])], dim=1)
+    # two zero guard limbs: the top window of a 255-bit field starts at bit
+    # 256 and reads limbs 16 and 17
+    limbs = torch.cat([limbs, torch.zeros_like(limbs[:, :2])], dim=1)
     nw = n_windows_for(Fr, c)
     off = torch.arange(nw, device=w.device) * c
     li, sh = off // 16, off % 16
@@ -40,10 +76,24 @@ def _signed_digits(Fr, scalars_mont, c: int):
     return ds.abs().to(torch.int32), ds < 0
 
 
+def point_tree_sum(curve: Curve, pts, dim: int = 0):
+    """Sum points along `dim` via log-depth pairwise adds (kernel B)."""
+    pts = pts.movedim(dim, 0)
+    while pts.shape[0] > 1:
+        n = pts.shape[0]
+        if n % 2:
+            pts = torch.cat([pts, curve.identity(
+                (1,) + tuple(pts.shape[1:-2]), pts.device)], dim=0)
+            n += 1
+        pts = curve.add(pts[: n // 2], pts[n // 2:])
+    return pts[0]
+
+
 def weighted_bucket_fold(curve: Curve, buckets):
-    """sum_{j >= 1} j B_j for buckets (nb, 3, 8).  Small spaces: two suffix
-    sums (W(x) = suffix(suffix(x))[0] = sum (i+1) x_i); large spaces split
-    j - 1 = Q h + l on an (H, Q) grid: Q (W(R) - S(R)) + W(C)."""
+    """sum_{j >= 1} j B_j for buckets (nb, ..., 3, 8), batched over the
+    middle dims.  Small spaces: two suffix sums (W(x) = suffix(suffix(x))[0]
+    = sum (i+1) x_i); large spaces split j - 1 = Q h + l on an (H, Q) grid:
+    Q (W(R) - S(R)) + W(C)."""
     dev = buckets.device
 
     def suffix(arr):
@@ -70,8 +120,9 @@ def weighted_bucket_fold(curve: Curve, buckets):
     Q = 1 << qbits
     H = -(-m // Q)
     if H * Q != m:
-        b = torch.cat([b, curve.identity((H * Q - m,), dev)], dim=0)
-    grid = b.reshape(H, Q, 3, b.shape[-1])
+        b = torch.cat([b, curve.identity((H * Q - m,) + tuple(b.shape[1:-2]),
+                                         dev)], dim=0)
+    grid = b.reshape((H, Q) + tuple(b.shape[1:]))
     R = point_tree_sum(curve, grid, 1)
     C = point_tree_sum(curve, grid, 0)
     SR = point_tree_sum(curve, R, 0)
@@ -79,3 +130,202 @@ def weighted_bucket_fold(curve: Curve, buckets):
     for _ in range(qbits):
         acc = curve.double(acc)
     return curve.add(acc, W(C))
+
+
+def horner_windows(curve: Curve, per_window, c: int):
+    """sum_w per_window[w] 2^(c w) for (nw, 3, 8), high window first: c
+    doublings and one add per window."""
+    acc = curve.identity((), per_window.device)
+    for w in range(per_window.shape[0] - 1, -1, -1):
+        for _ in range(c):
+            acc = curve.double(acc)
+        acc = curve.add(acc, per_window[w])
+    return acc
+
+
+# ----------------------------------------------------------------------
+# kernel 9: one segmented-scan level
+# ----------------------------------------------------------------------
+
+def pack_affine_rows(aff_xy, inf):
+    """(n, 2, 8) affine words + (n,) bool -> (n, 18) int32 rows
+    [x words | y words | infinity flag | pad]."""
+    n = aff_xy.shape[0]
+    flag = inf.to(torch.int32).reshape(n, 1)
+    return torch.cat([aff_xy.reshape(n, 2 * NWORDS), flag,
+                      torch.zeros_like(flag)], dim=1)
+
+
+def scan_level_plain(curve: Curve, keys, pts, block: int, mode: int):
+    """Plain version of kernel 9.  keys (M,) int32 non-decreasing, M a
+    multiple of block; pts (M, 18) affine rows (AFFINE / PACKED) or (M, 3, 8)
+    projective points.  In PACKED mode a key is 2 * bucket + sign and y is
+    negated on odd keys.  Returns (finals (M / block, 3, 8), lane_keys
+    (M / block,)): the running sum of each lane's last run piece, and its
+    (bucket) key."""
+    M = keys.shape[0]
+    nb = M // block
+    dev = keys.device
+    F = curve.Fq
+    k = keys.reshape(nb, block).to(torch.int64)
+    neg = None
+    if mode == PACKED:
+        neg = (k & 1).bool()
+        k = k >> 1
+    one = F.ones((nb,), dev)
+    zero = torch.zeros_like(one)
+    acc = curve.identity((nb,), dev)
+    seg = torch.full((nb,), -2, dtype=torch.int64, device=dev)
+    if mode == PROJECTIVE:
+        stream = pts.reshape(nb, block, 3, NWORDS)
+    else:
+        stream = pts.reshape(nb, block, ROW_WORDS)
+    for t in range(block):
+        fresh = (k[:, t] != seg)[:, None, None]
+        if mode == PROJECTIVE:
+            p = stream[:, t]
+            acc = torch.where(fresh, p, ec_add_plain(curve, acc, p))
+        else:
+            rows = stream[:, t]
+            x, y = rows[:, :NWORDS], rows[:, NWORDS:2 * NWORDS]
+            inf = (rows[:, 2 * NWORDS] & 1) != 0
+            if neg is not None:
+                y = torch.where(neg[:, t, None],
+                                binop_plain(F, SUB, zero, y), y)
+            i2 = inf[:, None]
+            started = torch.stack([torch.where(i2, zero, x),
+                                   torch.where(i2, one, y),
+                                   torch.where(i2, zero, one)], dim=-2)
+            added = ec_madd_plain(curve, acc, torch.stack([x, y], dim=-2),
+                                  inf)
+            acc = torch.where(fresh, started, added)
+        seg = k[:, t]
+    return acc, seg.to(torch.int32)
+
+
+def scan_level(curve: Curve, keys, pts, block: int, mode: int):
+    """One segmented-scan level (kernel 9 on CUDA tensors); see
+    `scan_level_plain` for the contract."""
+    if keys.device.type == "cpu":
+        return scan_level_plain(curve, keys, pts, block, mode)
+    M = keys.shape[0]
+    nb = M // block
+    width = (3, NWORDS) if mode == PROJECTIVE else (ROW_WORDS,)
+    if keys.device.type != "cuda" or pts.device != keys.device:
+        raise ValueError(f"scan on unsupported devices {keys.device}, "
+                         f"{pts.device}")
+    if keys.dtype != torch.int32 or pts.dtype != torch.int32 or \
+            nb * block != M or tuple(pts.shape) != (M,) + width:
+        raise ValueError(f"scan needs int32 keys (M,) with M a multiple of "
+                         f"{block} and points (M, {width}), got "
+                         f"{keys.dtype} {tuple(keys.shape)}, {pts.dtype} "
+                         f"{tuple(pts.shape)}")
+    keys = keys.contiguous()
+    pts = pts.contiguous()
+    finals = torch.empty((nb, 3, NWORDS), dtype=torch.int32,
+                         device=keys.device)
+    lane_keys = torch.empty((nb,), dtype=torch.int32, device=keys.device)
+    _scan_kernel.launch(curve.kernel_id, mode, keys.data_ptr(),
+                        pts.data_ptr(), finals.data_ptr(),
+                        lane_keys.data_ptr(), block, nb, stream_of(finals))
+    return finals, lane_keys
+
+
+# ----------------------------------------------------------------------
+# bucket reduction: sorted (key, point) stream -> per-key sums
+# ----------------------------------------------------------------------
+
+def _pieces(curve: Curve, keys, pts, inf, block: int, n_keys: int,
+            affine: bool, packed: bool, whole: bool):
+    """For each key k < n_keys, the sum of a piece of its run: the trailing
+    elements that do not end on a lane boundary (whole=False, the tails), or
+    the whole run (whole=True, for a stream of at most `block` elements).
+    Each key's piece fills one gathered lane of `block` elements, summed by
+    one scan level.  Returns (n_keys, 3, 8)."""
+    M = keys.shape[0]
+    dev = keys.device
+    seg_keys = ((keys >> 1) if packed else keys).to(torch.int64)
+    s = torch.searchsorted(seg_keys, torch.arange(n_keys + 1, device=dev))
+    start, end = s[:-1], s[1:]
+    if whole:
+        a, take = start, end - start
+    else:
+        lane_start = torch.div(end - 1, block, rounding_mode="floor") * block
+        a = torch.maximum(start, lane_start)
+        take = torch.where((end > start) & (end % block != 0), end - a, 0)
+    cols = torch.arange(block, device=dev)
+    valid = (cols[None, :] < take[:, None]).reshape(-1)
+    pos = (a[:, None] + cols[None, :]).clamp(0, M - 1).reshape(-1)
+    lane_keys = torch.arange(n_keys, dtype=torch.int32,
+                             device=dev).repeat_interleave(block)
+    if affine:
+        rows = pts[pos].clone()
+        rows[:, 2 * NWORDS] = (~valid | inf[pos]).to(torch.int32)
+        if packed:
+            return scan_level(curve, lane_keys * 2 + (keys[pos] & 1), rows,
+                              block, PACKED)[0]
+        return scan_level(curve, lane_keys, rows, block, AFFINE)[0]
+    g = torch.where((~valid | inf[pos])[:, None, None],
+                    curve.identity((1,), dev), pts[pos])
+    return scan_level(curve, lane_keys, g, block, PROJECTIVE)[0]
+
+
+def bucket_sums(curve: Curve, keys, rows, n_keys: int, block: int = 64,
+                packed: bool = False):
+    """Sum points grouped by key.  keys (M,) int32 sorted non-decreasing:
+    bucket ids in [0, n_keys), or (packed) 2 * bucket + sign with the
+    negation applied in the scan.  rows (M, 18) affine rows.  Returns
+    (n_keys, 3, 8) projective bucket sums."""
+    dev = keys.device
+    total = curve.identity((n_keys,), dev)
+    pts = rows
+    inf = (rows[:, 2 * NWORDS] & 1) != 0
+    affine = True
+    while keys.shape[0] > block:
+        pad = (-keys.shape[0]) % block
+        if pad:
+            keys = torch.cat([keys, keys.new_full((pad,), SENTINEL_KEY)])
+            fill = pack_affine_rows(curve.Fq.zeros((pad, 2), dev),
+                                    torch.ones(pad, dtype=torch.bool,
+                                               device=dev)) \
+                if affine else curve.identity((pad,), dev)
+            pts = torch.cat([pts, fill])
+            inf = torch.cat([inf, inf.new_ones(pad)])
+        tails = _pieces(curve, keys, pts, inf, block, n_keys, affine, packed,
+                        whole=False)
+        total = curve.add(total, tails)
+        mode = (PACKED if packed else AFFINE) if affine else PROJECTIVE
+        pts, keys = scan_level(curve, keys, pts, block, mode)
+        inf = curve.is_identity(pts) | (keys >= n_keys) | (keys < 0)
+        affine = packed = False
+    rest = _pieces(curve, keys, pts, inf, keys.shape[0], n_keys, affine,
+                   packed, whole=True)
+    return curve.add(total, rest)
+
+
+# ----------------------------------------------------------------------
+# the variable-base MSM
+# ----------------------------------------------------------------------
+
+def msm_variable(curve: Curve, scalars_mont, points, c: int = 8,
+                 block: int = 64):
+    """Variable-base MSM (the general `best_multiexp`): per-window bucket
+    spaces tagged into one key stream, one stable sort, the segmented scan,
+    then a weighted fold per window and a Horner combine over windows."""
+    n = scalars_mont.shape[0]
+    nw = n_windows_for(curve.Fr, c)
+    nb_keys = (1 << (c - 1)) + 1
+    digits, signs = _signed_digits(curve.Fr, scalars_mont, c)
+    rows = pack_affine_rows(curve.batch_normalize(points),
+                            curve.is_identity(points))
+    window = torch.arange(nw, dtype=torch.int32,
+                          device=digits.device)[:, None]
+    keys = ((digits + window * nb_keys) * 2 +
+            signs.to(torch.int32)).reshape(-1)
+    keys_s, perm = torch.sort(keys.to(torch.int64), stable=True)
+    # the window-tiled stream is rows[i % n]: gather from the n-row table
+    buckets = bucket_sums(curve, keys_s.to(torch.int32), rows[perm % n],
+                          nw * nb_keys, block, packed=True)
+    per_window = weighted_bucket_fold(
+        curve, buckets.reshape(nw, nb_keys, 3, NWORDS).transpose(0, 1))
+    return horner_windows(curve, per_window, c)

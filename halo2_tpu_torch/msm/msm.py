@@ -1,29 +1,13 @@
-"""MSM entry points (port of the parts of halo2_tpu/msm/msm.py on the KZG
-main path): the tree sum, the naive reference MSM and the small-n branch of
-the `best_multiexp` dispatch.  Fixed-base commitments go through
+"""MSM entry points (port of the JAX reference's msm/msm.py): the naive
+reference MSM and the `best_multiexp` dispatch.  Variable-base MSMs above
+32 points run Pippenger's method on the segmented-scan kernel
+(`bucket_scan.msm_variable`); fixed-base commitments go through
 `stream_msm.StreamMSM` instead."""
 
 from __future__ import annotations
 
-import torch
-
 from ..curves.curve import Curve
-
-VARIABLE_BASE_TODO = ("variable-base MSM with n > 32 (the sorted segmented-"
-                      "scan kernel, ROADMAP Queue 2 item 9) is not ported")
-
-
-def point_tree_sum(curve: Curve, pts, dim: int = 0):
-    """Sum points along `dim` via log-depth pairwise adds (kernel B)."""
-    pts = pts.movedim(dim, 0)
-    while pts.shape[0] > 1:
-        n = pts.shape[0]
-        if n % 2:
-            pts = torch.cat([pts, curve.identity(
-                (1,) + tuple(pts.shape[1:-2]), pts.device)], dim=0)
-            n += 1
-        pts = curve.add(pts[: n // 2], pts[n // 2:])
-    return pts[0]
+from .bucket_scan import msm_variable, point_tree_sum
 
 
 def naive_msm(curve: Curve, scalars_mont, points):
@@ -32,12 +16,20 @@ def naive_msm(curve: Curve, scalars_mont, points):
     return point_tree_sum(curve, curve.scalar_mul(points, scalars_mont))
 
 
+def pippenger_msm(curve: Curve, scalars_mont, points, c: int = 8,
+                  block: int = 64):
+    """Variable-base MSM via the windowed bucket method: (n, 8) scalars and
+    (n, 3, 8) points -> one projective point (3, 8)."""
+    return msm_variable(curve, scalars_mont, points, c, block)
+
+
 def msm(curve: Curve, scalars_mont, points):
-    """The `best_multiexp` dispatch for what the main path needs: tiny
-    variable-base MSMs.  Longer ones wait for the scan kernel."""
+    """The `best_multiexp` dispatch with the reference's window rule: naive
+    up to 32 points, else Pippenger with c = 8 from 2^12 points, c = 4
+    below."""
     n = int(scalars_mont.shape[0])
     if n == 0:
         return curve.identity((), points.device)
     if n <= 32:
         return naive_msm(curve, scalars_mont, points)
-    raise NotImplementedError(VARIABLE_BASE_TODO)
+    return pippenger_msm(curve, scalars_mont, points, 8 if n >= 1 << 12 else 4)

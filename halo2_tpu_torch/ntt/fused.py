@@ -1,6 +1,6 @@
 """Four-step NTT around kernel C (csrc/ntt.cu), and kernel C's plain version.
 
-Port of halo2_tpu/ntt/fused.py.  A transform of length m = n1 * n2 runs as
+Port of the JAX reference's ntt/fused.py.  A transform of length m = n1 * n2 runs as
 a base NTT over i1, a mid twiddle w^(k1 i2) (kernel A), a transpose, and a
 base NTT over i2 (recursively, until the base fits one block).  The base
 transform is kernel C: a Stockham NTT of up to 2^10 points held in shared
@@ -20,7 +20,7 @@ from ..fields.field import Field
 
 LOG_MAX_BASE = 10        # 2^10 elements x 32 B = 32 KB of shared memory
 
-_ntt_kernel = Kernel("h2_ntt_base", [P, P, P, I32, I64, I64, P])
+_ntt_kernel = Kernel("h2_ntt_base", [I32, P, P, P, I32, I64, I64, P])
 
 
 def stage_table(F: Field, wm: int, log_m: int, device) -> torch.Tensor:
@@ -69,12 +69,11 @@ def base_ntt(F: Field, x, table, log_m: int):
         raise ValueError(f"NTT base needs (outer, 2^{log_m}, inner, 8) int32 "
                          f"with 1 <= log_m <= {LOG_MAX_BASE}, got "
                          f"{x.dtype} {tuple(x.shape)}")
-    if F.kernel_id != 0:
-        raise ValueError("kernel C is built for BN254 Fr")
     x = x.contiguous()
     table = table.contiguous()
     out = torch.empty_like(x)
-    _ntt_kernel.launch(x.data_ptr(), out.data_ptr(), table.data_ptr(),
+    _ntt_kernel.launch(F.kernel_id, x.data_ptr(), out.data_ptr(),
+                       table.data_ptr(),
                        log_m, x.shape[0], x.shape[2], stream_of(out))
     return out
 

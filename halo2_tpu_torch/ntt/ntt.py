@@ -1,4 +1,4 @@
-"""Radix-2 NTT entry points (port of halo2_tpu/ntt/ntt.py).
+"""Radix-2 NTT entry points (port of the JAX reference's ntt/ntt.py).
 
 Every length runs the four-step path around kernel C (ntt/fused.py); the
 reference's stage-per-op path for short transforms computes the same values

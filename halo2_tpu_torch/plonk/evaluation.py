@@ -1,14 +1,13 @@
 """Expression evaluation over column tensors (port of
-halo2_tpu/plonk/evaluation.py): rotations become `torch.roll`, sums and
+the JAX reference's plonk/evaluation.py): rotations become `torch.roll`, sums and
 products batched field ops over whole columns."""
 
 from __future__ import annotations
 
 import torch
 
-from halo2_tpu.frontend.expression import ADVICE, FIXED, INSTANCE
-
 from ..fields.field import Field
+from ..frontend.expression import ADVICE, FIXED, INSTANCE
 
 
 def evaluate_expression(F: Field, expr, *, fixed, advice, instance,

@@ -1,4 +1,4 @@
-"""Backend keygen (port of halo2_tpu/plonk/keygen.py; keygen.rs and
+"""Backend keygen (port of the JAX reference's plonk/keygen.py; keygen.rs and
 permutation/keygen.rs).  Column data lands on the params' device as stacked
 tensors; commitments are normalized to host affine ints."""
 
@@ -10,15 +10,13 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from halo2_tpu.frontend.circuit import CompiledCircuit
-from halo2_tpu.frontend.constraint_system import ConstraintSystem
-from halo2_tpu.frontend.expression import (ADVICE, FIXED, INSTANCE, Column,
-                                           Rotation)
-
-from .._shared import pinned
 from ..commit.base import Blind
 from ..commit.kzg import PreMSM
+from ..compat import pinned
 from ..fields.field import Field
+from ..frontend.circuit import CompiledCircuit
+from ..frontend.constraint_system import ConstraintSystem
+from ..frontend.expression import ADVICE, FIXED, INSTANCE, Column, Rotation
 from ..poly.domain import EvaluationDomain
 
 
@@ -153,8 +151,12 @@ class VerifyingKey:
         self.k = k
         self.transcript_repr = self._compute_repr()
 
+    def pinned(self) -> str:
+        """`format!("{:#?}", vk.pinned())`, the reference's golden form."""
+        return pinned.pinned_pretty(self)
+
     def pinned_compact(self) -> str:
-        return pinned().pinned_compact(self)
+        return pinned.pinned_compact(self)
 
     def _compute_repr(self) -> int:
         """Pinned-vk hash (plonk.rs:189-202)."""

@@ -1,5 +1,5 @@
 """Sort-based `permute_expression_pair` (port of
-halo2_tpu/plonk/lookup_sort.py; lookup/prover.rs:410-494).
+the JAX reference's plonk/lookup_sort.py; lookup/prover.rs:410-494).
 
   A' = sorted(input)
   S'[i] = A'[i]                  where A'[i] is a first occurrence

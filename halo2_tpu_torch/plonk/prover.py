@@ -1,6 +1,7 @@
-"""PLONK prover (port of halo2_tpu/plonk/prover.py; prover.rs state machine
-:174-494 and proof steps :512-899) for the KZG main path: gates, the
-permutation argument, lookups and the vanishing argument.
+"""PLONK prover (port of the JAX reference's plonk/prover.py; prover.rs
+state machine :174-494 and proof steps :512-899): gates, the permutation
+argument, lookups and the vanishing argument, for multiopen schemes that
+absorb the instances as scalars (SHPLONK) or commit to them (IPA).
 
 Column sets move through the NTTs as stacked tensors; grand products use
 batch inversion and log-depth prefix products; transcript traffic stays on
@@ -17,11 +18,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from halo2_tpu.frontend.expression import ADVICE, FIXED, INSTANCE, Rotation
-
 from ..commit.base import Blind, PolyRef, ProverQuery
 from ..commit.kzg import PreMSM
 from ..fields.field import NWORDS, Field
+from ..frontend.expression import ADVICE, FIXED, INSTANCE, Rotation
 from ..ntt import powers
 from ..poly.arith import eval_polys_at_points, prefix_product
 from ..poly.poly import Poly
@@ -185,10 +185,8 @@ class Prover:
 
     def __init__(self, params, pk: ProvingKey, instances, rng, transcript,
                  query_instance: bool, engine=None):
-        if query_instance:
-            raise NotImplementedError(
-                "instance-committing schemes (IPA) are not ported yet")
         self.params = params
+        self.query_instance = query_instance
         self.pk = pk
         self.F = F = pk.vk.F
         self.device = dev = params.device
@@ -210,7 +208,8 @@ class Prover:
 
         # [TRANSCRIPT-1] vk hash
         pk.vk.hash_into(transcript)
-        # [TRANSCRIPT-2] instances, absorbed as scalars (KZG)
+        # [TRANSCRIPT-2] instances: absorbed as scalars, or committed
+        # (query_instance schemes) and absorbed as points
         self.instance_values = []
         self.instance_polys = []
         for inst in instances:
@@ -218,12 +217,20 @@ class Prover:
             for values in inst:
                 if len(values) > n - (bf + 1):
                     raise ValueError("instance too large")
-                for v in values:
-                    transcript.common_scalar(v % F.p)
+                if not query_instance:
+                    for v in values:
+                        transcript.common_scalar(v % F.p)
                 cols.append([v % F.p for v in values] +
                             [0] * (n - len(values)))
             vals = F.encode_ints_cols(cols, dev) if cols \
                 else F.zeros((0, n), dev)
+            if query_instance:
+                pre = PreMSM(params.curve)
+                for col in vals:
+                    pre.append_term(1, params.commit_lagrange(
+                        Poly.lagrange(col), Blind(1)))
+                for pt in pre.normalize():
+                    transcript.common_point(pt)
             self.instance_values.append(vals)
             self.instance_polys.append(
                 domain.lagrange_to_coeff(Poly.lagrange(vals)) if cols
@@ -384,6 +391,11 @@ class Prover:
         x_prev = domain.rotate_omega_int(x, Rotation(-1))
         m = len(cs.permutation.columns)
         reqs = []
+        if self.query_instance:
+            for c in range(n_circ):
+                for column, at in cs_back.instance_queries:
+                    reqs.append((self.instance_polys[c][column.index],
+                                 domain.rotate_omega_int(x, at)))
         for c in range(n_circ):
             for column, at in cs_back.advice_queries:
                 reqs.append((advice_polys[c][column.index],
@@ -415,6 +427,15 @@ class Prover:
         # prover queries (prover.rs:840-889)
         queries: List[ProverQuery] = []
         for c in range(n_circ):
+            if self.query_instance:
+                inst_refs = {}
+                for column, at in cs_back.instance_queries:
+                    if column.index not in inst_refs:
+                        inst_refs[column.index] = PolyRef(
+                            self.instance_polys[c][column.index], Blind(1))
+                    queries.append(ProverQuery(
+                        domain.rotate_omega_int(x, at),
+                        inst_refs[column.index]))
             adv_refs = {}
             for column, at in cs_back.advice_queries:
                 if column.index not in adv_refs:

@@ -1,15 +1,16 @@
-"""PLONK verifier (port of halo2_tpu/plonk/verifier.py; verifier.rs:32-511)
-for the KZG main path.  Host-side integer arithmetic; the deferred MSMs are
-checked by the commitment scheme's strategy."""
+"""PLONK verifier (port of the JAX reference's plonk/verifier.py;
+verifier.rs:32-511).  Host-side integer arithmetic, except the instance
+commitments of query_instance schemes (IPA), which are full-length MSMs on
+the params' device; the deferred MSMs are checked by the commitment
+scheme's strategy."""
 
 from __future__ import annotations
 
 from typing import Dict, List
 
-from halo2_tpu.frontend.expression import ADVICE, FIXED, INSTANCE, Rotation
-
-from .._shared import errors
-from ..commit.base import VerifierQuery
+from ..commit.base import Blind, VerifierQuery
+from ..frontend.expression import ADVICE, FIXED, INSTANCE, Rotation
+from .errors import VerifyError
 from .keygen import VerifyingKey
 
 
@@ -17,10 +18,6 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
                  query_instance: bool) -> List[VerifierQuery]:
     """Replays the prover's transcript; returns the verifier queries for
     the multiopen verifier."""
-    if query_instance:
-        raise NotImplementedError(
-            "instance-committing schemes (IPA) are not ported yet")
-    VerifyError = errors().VerifyError
     F = vk.F
     p = F.p
     cs_back = vk.cs
@@ -35,12 +32,30 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
         if len(inst) != cs.num_instance_columns:
             raise VerifyError("invalid number of instance columns")
 
+    # instance commitments of query_instance schemes (verifier.rs:82-116)
+    instance_commitments = []
+    if query_instance:
+        for inst in instances:
+            comms = []
+            for values in inst:
+                if len(values) > n - (bf + 1):
+                    raise VerifyError("instance too large")
+                col = [v % p for v in values] + [0] * (n - len(values))
+                comms.append(params.commit_affine_lagrange(
+                    F.encode_ints(col, params.device), Blind(1)))
+            instance_commitments.append(comms)
+
     # [TRANSCRIPT-1/2]
     vk.hash_into(transcript)
-    for inst in instances:
-        for values in inst:
-            for v in values:
-                transcript.common_scalar(v % p)
+    if query_instance:
+        for comms in instance_commitments:
+            for comm in comms:
+                transcript.common_point(comm)
+    else:
+        for inst in instances:
+            for values in inst:
+                for v in values:
+                    transcript.common_scalar(v % p)
 
     # [TRANSCRIPT-3/4] advice commitments per phase, challenges
     advice_commitments = [[None] * cs.num_advice_columns
@@ -77,9 +92,14 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
     x = transcript.squeeze_challenge()
     xn = pow(x, n, p)
 
-    # instance evals: barycentric from the raw values (verifier.rs:266-305)
+    # [TRANSCRIPT-16] instance evals: read (query_instance schemes), else
+    # barycentric from the raw values (verifier.rs:266-305)
     instance_evals = [[] for _ in range(n_circ)]
-    if cs_back.instance_queries:
+    if query_instance:
+        instance_evals = [[transcript.read_scalar()
+                           for _ in cs_back.instance_queries]
+                          for _ in range(n_circ)]
+    elif cs_back.instance_queries:
         max_rot = max(max(r.i for _, r in cs_back.instance_queries), 0)
         min_rot = min(min(r.i for _, r in cs_back.instance_queries), 0)
         max_len = max([len(col) for inst in instances for col in inst] + [0])
@@ -193,6 +213,12 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
     x_last = domain.rotate_omega_int(x, Rotation(-(bf + 1)))
     x_prev = domain.rotate_omega_int(x, Rotation(-1))
     for c in range(n_circ):
+        if query_instance:
+            for qi, (column, at) in enumerate(cs_back.instance_queries):
+                queries.append(VerifierQuery(
+                    domain.rotate_omega_int(x, at),
+                    instance_commitments[c][column.index],
+                    instance_evals[c][qi], ident=("inst", c, column.index)))
         for qi, (column, at) in enumerate(cs_back.advice_queries):
             queries.append(VerifierQuery(
                 domain.rotate_omega_int(x, at),

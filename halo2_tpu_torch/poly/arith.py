@@ -1,4 +1,4 @@
-"""Polynomial arithmetic helpers (port of halo2_tpu/poly/arith.py)."""
+"""Polynomial arithmetic helpers (port of the JAX reference's poly/arith.py)."""
 
 from __future__ import annotations
 

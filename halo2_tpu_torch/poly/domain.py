@@ -1,4 +1,4 @@
-"""Evaluation domains (port of halo2_tpu/poly/domain.py).
+"""Evaluation domains (port of the JAX reference's poly/domain.py).
 
 Every transform takes (..., n, 8) tensors and moves a whole column set in
 one batched NTT; the constants (t-evaluation inverses, zeta patterns) live
@@ -9,9 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from halo2_tpu.frontend.expression import Rotation
-
 from ..fields.field import NWORDS, Field
+from ..frontend.expression import Rotation
 from ..ntt import get_ntt
 from .poly import COEFF, EXTENDED, LAGRANGE, Poly, take
 

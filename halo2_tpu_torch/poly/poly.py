@@ -1,4 +1,4 @@
-"""Basis-typed polynomial container (port of halo2_tpu/poly/poly.py).
+"""Basis-typed polynomial container (port of the JAX reference's poly/poly.py).
 
 A polynomial is an (..., n, 8) tensor plus a basis tag, checked and
 unwrapped at every basis-sensitive boundary (domain transforms,

@@ -1,11 +1,13 @@
 """Blake2b Fiat-Shamir transcripts, byte for byte the reference's
-(halo2_tpu/transcript/transcript.py, itself a mirror of
+(the JAX reference's transcript/transcript.py, itself a mirror of
 halo2_backend/src/transcript.rs).  Host-side: scalars and point coordinates
 travel as canonical python ints."""
 
 from __future__ import annotations
 
 import hashlib
+
+from ..plonk.errors import TranscriptError
 
 BLAKE2B_PREFIX_CHALLENGE = b"\x00"
 BLAKE2B_PREFIX_POINT = b"\x01"
@@ -67,29 +69,26 @@ class Blake2bRead(_Blake2bBase):
         self._pos = 0
 
     def _take(self, n: int) -> bytes:
-        from .._shared import errors
         if self._pos + n > len(self._proof):
-            raise errors().TranscriptError("proof stream exhausted")
+            raise TranscriptError("proof stream exhausted")
         out = self._proof[self._pos: self._pos + n]
         self._pos += n
         return out
 
     def read_point(self):
-        from .._shared import errors
         try:
             pt = self.curve.point_from_bytes(self._take(32))
         except ValueError as e:
-            raise errors().TranscriptError(
+            raise TranscriptError(
                 f"invalid point encoding in proof: {e}")
         self.common_point(pt)
         return pt
 
     def read_scalar(self) -> int:
-        from .._shared import errors
         try:
             s = self.Fr.from_repr(self._take(32))
         except ValueError as e:
-            raise errors().TranscriptError(
+            raise TranscriptError(
                 f"invalid field element in proof: {e}")
         self.common_scalar(s)
         return s

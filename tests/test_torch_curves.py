@@ -1,15 +1,20 @@
-"""The port's BN254 G1 (halo2_tpu_torch.curves) and kernel B's plain version
-against the JAX reference's Curve.  Both run the same complete formulas on
-canonical elements, so even the projective words must be equal."""
+"""The port's BN254 G1, Pallas and Vesta (halo2_tpu_torch.curves) and kernel
+B's plain version against the JAX reference's Curve, on both sides of the
+plain versions' selection rule (`cuda_ops.on_ints`: python ints for small
+CPU batches, int64 limbs otherwise).  Both packages run the same complete
+formulas on canonical elements, so even the projective words must be
+equal."""
 
 import numpy as np
 import pytest
 import torch
 
-from halo2_tpu.curves import BN254_G1 as REF
+from halo2_tpu.curves import (BN254_G1 as REF, PALLAS as REF_PALLAS,
+                              VESTA as REF_VESTA)
 from halo2_tpu.msm.host_msm import host_msm
 from halo2_tpu_torch.compat.from_jax import limbs_from_jax
-from halo2_tpu_torch.curves import BN254_G1, cuda_ec
+from halo2_tpu_torch.curves import BN254_G1, PALLAS, VESTA, cuda_ec
+from halo2_tpu_torch.fields import cuda_ops
 
 # The plain versions run many small tensor ops: one thread per worker
 # is as fast and leaves the other cores to the other test workers.
@@ -19,27 +24,70 @@ C = BN254_G1
 R_ORDER = C.Fr.p
 
 
-def _points(n: int, seed: int) -> list:
+PASTA = {"pallas": (PALLAS, REF_PALLAS), "vesta": (VESTA, REF_VESTA)}
+
+
+def plain_paths(monkeypatch):
+    """Both sides of `cuda_ops.on_ints`: python ints, then int64 limbs."""
+    yield "ints"
+    monkeypatch.setattr(cuda_ops, "INT_ELEMS", 0)
+    monkeypatch.setattr(cuda_ops, "INT_POINTS", 0)
+    yield "limbs"
+
+
+def _points(n: int, seed: int, curve=C, ref=REF) -> list:
     rng = np.random.default_rng(seed)
     ks = [int(k) for k in rng.integers(1, 1 << 62, size=n)]
-    return [host_msm(REF, [k], [(1, 2)]) for k in ks]
+    return [host_msm(ref, [k], [(curve.gen_x, curve.gen_y)]) for k in ks]
+
+
+def _operands(curve=C, ref=REF):
+    """P and Q covering random pairs, identities, P + P and P + (-P)."""
+    ps = _points(12, 1, curve, ref)
+    qs = _points(12, 2, curve, ref)
+    ps[0] = None                                  # identity + Q
+    qs[1] = None                                  # P + identity
+    ps[2] = qs[2] = None                          # identity + identity
+    qs[3] = ps[3]                                 # P + P
+    qs[4] = (ps[4][0], (-ps[4][1]) % curve.Fq.p)  # P + (-P)
+    return ps, qs
 
 
 @pytest.fixture(scope="module")
 def operands():
-    """P and Q covering random pairs, identities, P + P and P + (-P)."""
-    ps = _points(12, seed=1)
-    qs = _points(12, seed=2)
-    ps[0] = None                              # identity + Q
-    qs[1] = None                              # P + identity
-    ps[2] = qs[2] = None                      # identity + identity
-    qs[3] = ps[3]                             # P + P
-    qs[4] = (ps[4][0], (-ps[4][1]) % C.Fq.p)  # P + (-P)
-    return ps, qs
+    return _operands()
 
 
-def _both(pts):
-    return C.from_affine_ints(pts, "cpu"), REF.from_affine_ints(pts)
+def _both(pts, curve=C, ref=REF):
+    return curve.from_affine_ints(pts, "cpu"), ref.from_affine_ints(pts)
+
+
+def _group_law(curve, ref, ps, qs, op, monkeypatch):
+    """One group-law op on both plain paths: the projective words equal the
+    reference's, the affine results equal host_msm's."""
+    P, RP = _both(ps, curve, ref)
+    Q, RQ = _both(qs, curve, ref)
+    if op == "add":
+        theirs = ref.add(RP, RQ)
+    elif op == "double":
+        theirs = ref.double(RP)
+    else:
+        inf = torch.tensor([q is None for q in qs])
+        theirs = ref.madd(RP, ref.batch_normalize(RQ), np.asarray(inf))
+        Qa = curve.batch_normalize(Q)
+    want = [host_msm(ref, [1, 1] if op != "double" else [2],
+                     [p, q] if op != "double" else [p])
+            for p, q in zip(ps, qs)]
+    for path in plain_paths(monkeypatch):
+        assert cuda_ops.on_ints(P, points=True) == (path == "ints")
+        if op == "add":
+            ours = curve.add(P, Q)
+        elif op == "double":
+            ours = curve.double(P)
+        else:
+            ours = curve.madd(P, Qa, inf)
+        assert torch.equal(ours, limbs_from_jax(np.asarray(theirs))), path
+        assert curve.to_affine_ints(ours) == want, path
 
 
 def test_from_to_affine_match_reference(operands):
@@ -53,35 +101,34 @@ def test_from_to_affine_match_reference(operands):
 
 
 @pytest.mark.parametrize("op", ["add", "madd", "double"])
-def test_group_law_matches_reference(operands, op):
-    ps, qs = operands
-    P, RP = _both(ps)
-    Q, RQ = _both(qs)
-    if op == "add":
-        ours, theirs = C.add(P, Q), REF.add(RP, RQ)
-    elif op == "double":
-        ours, theirs = C.double(P), REF.double(RP)
-    else:
-        inf = torch.tensor([q is None for q in qs])
-        ours = C.madd(P, C.batch_normalize(Q), inf)
-        theirs = REF.madd(RP, REF.batch_normalize(RQ), np.asarray(inf))
-    assert torch.equal(ours, limbs_from_jax(np.asarray(theirs)))
-    want = [host_msm(REF, [1, 1] if op != "double" else [2],
-                     [p, q] if op != "double" else [p])
-            for p, q in zip(ps, qs)]
-    assert C.to_affine_ints(ours) == want
+def test_group_law_matches_reference(operands, op, monkeypatch):
+    _group_law(C, REF, *operands, op, monkeypatch)
 
 
-def test_kernel_b_plain_called_directly(operands):
-    ps, qs = operands
-    P, _ = _both(ps)
-    Q, _ = _both(qs)
-    assert torch.equal(cuda_ec.ec_add_plain(C, P, Q), C.add(P, Q))
-    assert torch.equal(cuda_ec.ec_double_plain(C, P), C.double(P))
-    inf = C.is_identity(Q)
-    assert torch.equal(
-        cuda_ec.ec_madd_plain(C, P, C.batch_normalize(Q), inf),
-        C.madd(P, C.batch_normalize(Q), inf))
+@pytest.mark.parametrize("op", ["add", "madd", "double"])
+@pytest.mark.parametrize("name", sorted(PASTA))
+def test_pasta_group_law_matches_reference(name, op, monkeypatch):
+    """Pallas and Vesta (b = 5: the 3b = 15x = 16x - x chain)."""
+    curve, ref = PASTA[name]
+    _group_law(curve, ref, *_operands(curve, ref), op, monkeypatch)
+
+
+def test_kernel_b_plain_called_directly(operands, monkeypatch):
+    """Kernel B's plain versions, called directly on each curve: the int64
+    limbs give the words the python ints give."""
+    outs = {}
+    for path in plain_paths(monkeypatch):
+        for curve, ref in [(C, REF)] + [PASTA[k] for k in sorted(PASTA)]:
+            ps, qs = operands if curve is C else _operands(curve, ref)
+            P, Q = _both(ps, curve, ref)[0], _both(qs, curve, ref)[0]
+            Qa, inf = curve.batch_normalize(Q), curve.is_identity(Q)
+            outs[path, curve.name] = (
+                cuda_ec.ec_add_plain(curve, P, Q),
+                cuda_ec.ec_double_plain(curve, P),
+                cuda_ec.ec_madd_plain(curve, P, Qa, inf))
+    for (path, name), out in outs.items():
+        for ints, limbs in zip(outs["ints", name], out):
+            assert torch.equal(ints, limbs), (path, name)
 
 
 def test_neg_eq_identity_normalize(operands):

@@ -16,7 +16,9 @@ from halo2_tpu.commit import (ParamsKZG as RefParamsKZG,
 from halo2_tpu.compat.plonk_api import plonk_api_instance
 from halo2_tpu.fields import BN254_FR as REF_F
 from halo2_tpu_torch import api
-from halo2_tpu_torch.commit import ParamsKZG
+from halo2_tpu_torch.commit import (ParamsKZG, ProverSHPLONK,
+                                    SingleStrategyKZG, VerifierSHPLONK)
+from halo2_tpu_torch.compat import plonk_api
 from halo2_tpu_torch.compat.from_jax import params_kzg_from_jax
 from halo2_tpu_torch.fields import BN254_FR as F
 
@@ -40,13 +42,20 @@ def ref():
 
 @pytest.fixture(scope="module")
 def port(ref):
-    params = params_kzg_from_jax(ref[0])
-    circuit, inst = plonk_api_instance(F)
+    params = params_kzg_from_jax(ref[0], device="cpu")
+    circuit, inst = plonk_api.plonk_api_instance(F)
     pk = api.keygen(F, params, K, circuit)
     timings = {}
     proof = api.create_proof(params, pk, [circuit], [inst], random.Random(1),
+                             multiopen_prover_cls=ProverSHPLONK,
                              timings=timings)
     return params, pk, proof, timings
+
+
+def _verify(params, vk, proof, inst) -> bool:
+    return api.verify(params, vk, proof, [inst],
+                      multiopen_verifier_cls=VerifierSHPLONK,
+                      strategy_cls=SingleStrategyKZG)
 
 
 def _ref_verify(ref, proof) -> bool:
@@ -64,13 +73,13 @@ def _tampered(proof: bytes, at: int) -> bytes:
 
 
 def test_params_new_matches_reference(ref):
-    ours = ParamsKZG.new(K)
+    ours = ParamsKZG.new(K, device="cpu")
     theirs = ref[0]
     assert ours.g_aff == theirs.g_aff
     assert ours.g_lagrange_aff == theirs.g_lagrange_aff
     assert (ours.g2, ours.s_g2, ours.s_secret) == \
         (theirs.g2, theirs.s_g2, theirs.s_secret)
-    converted = params_kzg_from_jax(theirs)
+    converted = params_kzg_from_jax(theirs, device="cpu")
     assert torch.equal(converted.g, ours.g)
     assert torch.equal(converted.g_lagrange, ours.g_lagrange)
 
@@ -94,10 +103,52 @@ def test_proof_bytes_identical(ref, port):
 def test_each_package_verifies_the_other(ref, port):
     params, pk, proof, _ = port
     inst = ref[3]
-    assert api.verify(params, pk.vk, ref[2], [inst])
+    assert _verify(params, pk.vk, ref[2], inst)
     assert _ref_verify(ref, proof)
     for at in (40, len(proof) - 1):
-        assert not api.verify(params, pk.vk, _tampered(proof, at), [inst])
+        assert not _verify(params, pk.vk, _tampered(proof, at), inst)
         assert not _ref_verify(ref, _tampered(proof, at))
-    assert not api.verify(params, pk.vk, proof, [[[3]]])
-    assert not api.verify(params, pk.vk, proof[:-32], [inst])
+    assert not _verify(params, pk.vk, proof, [[3]])
+    assert not _verify(params, pk.vk, proof[:-32], inst)
+
+
+# ----------------------------------------------------------------------
+# lookup_heavy (four 16-bit range lookups per row), at its smallest k
+# ----------------------------------------------------------------------
+
+K_LH = 6
+
+
+@pytest.fixture(scope="module")
+def lookup_heavy_pair():
+    """(reference, port) x (params, pk, proof, instances) at K_LH."""
+    from halo2_tpu.compat.lookup_heavy import (
+        lookup_heavy_instance as ref_lookup_heavy)
+    from halo2_tpu_torch.compat.lookup_heavy import lookup_heavy_instance
+    out = []
+    for make, keygen, prove, params in (
+            (ref_lookup_heavy, ref_api.keygen, ref_api.create_proof,
+             lambda: RefParamsKZG.new(K_LH)),
+            (lookup_heavy_instance, api.keygen, api.create_proof,
+             lambda: ParamsKZG.new(K_LH, device="cpu"))):
+        F_ = REF_F if make is ref_lookup_heavy else F
+        circuit, inst, kg_circuit = make(F_, K_LH)
+        prm = params()
+        pk = keygen(F_, prm, K_LH, kg_circuit)
+        proof = prove(prm, pk, [circuit], [inst], random.Random(1),
+                      multiopen_prover_cls=(
+                          RefProverSHPLONK if make is ref_lookup_heavy
+                          else ProverSHPLONK))
+        out.append((prm, pk, proof, inst))
+    return out
+
+
+def test_lookup_heavy_matches_reference(lookup_heavy_pair):
+    (rp, rpk, rproof, inst), (pp, ppk, pproof, _) = lookup_heavy_pair
+    assert ppk.vk.transcript_repr == rpk.vk.transcript_repr
+    assert ppk.vk.fixed_commitments == rpk.vk.fixed_commitments
+    assert len(ppk.vk.cs.cs.lookups) == 4
+    assert pproof == rproof
+    assert _verify(pp, ppk.vk, rproof, inst)
+    assert _ref_verify((rp, rpk, rproof, inst), pproof)
+    assert not _verify(pp, ppk.vk, _tampered(pproof, 64), inst)

@@ -1,20 +1,35 @@
-"""The port's BN254 fields (halo2_tpu_torch.fields) and kernel A's plain
-version against the JAX reference's Field and python ints.  All arithmetic
-is exact, so every comparison is equality (tolerance 0)."""
+"""The port's BN254 and Pasta fields (halo2_tpu_torch.fields) and kernel A's
+plain version against the JAX reference's Field and python ints, on both
+sides of the plain versions' selection rule (`cuda_ops.on_ints`: python
+ints for small CPU batches, int64 limbs otherwise).  All arithmetic is
+exact, so every comparison is equality (tolerance 0)."""
 
 import numpy as np
 import pytest
 import torch
 
-from halo2_tpu.fields import BN254_FQ as REF_FQ, BN254_FR as REF_FR
+from halo2_tpu.fields import (BN254_FQ as REF_FQ, BN254_FR as REF_FR,
+                              PASTA_FP as REF_PASTA_FP,
+                              PASTA_FQ as REF_PASTA_FQ)
 from halo2_tpu_torch.compat.from_jax import limbs_from_jax, limbs_to_jax
-from halo2_tpu_torch.fields import BN254_FQ, BN254_FR, cuda_ops
+from halo2_tpu_torch.fields import (BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ,
+                                    cuda_ops)
 
 # The plain versions run many small tensor ops: one thread per worker
 # is as fast and leaves the other cores to the other test workers.
 torch.set_num_threads(1)
 
-FIELDS = {"fr": (BN254_FR, REF_FR), "fq": (BN254_FQ, REF_FQ)}
+FIELDS = {"fr": (BN254_FR, REF_FR), "fq": (BN254_FQ, REF_FQ),
+          "pasta_fp": (PASTA_FP, REF_PASTA_FP),
+          "pasta_fq": (PASTA_FQ, REF_PASTA_FQ)}
+
+
+def plain_paths(monkeypatch):
+    """Both sides of `cuda_ops.on_ints`: python ints, then int64 limbs."""
+    yield "ints"
+    monkeypatch.setattr(cuda_ops, "INT_ELEMS", 0)
+    monkeypatch.setattr(cuda_ops, "INT_POINTS", 0)
+    yield "limbs"
 
 
 def _ints(p: int, n: int, seed: int) -> list:
@@ -49,20 +64,22 @@ def test_encode_decode_match_reference(name):
 
 @pytest.mark.parametrize("op", ["mul", "add", "sub"])
 @pytest.mark.parametrize("name", sorted(FIELDS))
-def test_binops_match_reference(name, op):
+def test_binops_match_reference(name, op, monkeypatch):
     F, R = FIELDS[name]
     xs = _ints(F.p, 100, seed=2)
     ys = _ints(F.p, 100, seed=3)[::-1]
     a, b = R.encode_ints(xs), R.encode_ints(ys)
     theirs = limbs_from_jax(np.asarray(getattr(R, op)(a, b)))
-    ours = getattr(F, op)(limbs_from_jax(np.asarray(a)),
-                          limbs_from_jax(np.asarray(b)))
-    assert torch.equal(ours, theirs)
+    a_t, b_t = limbs_from_jax(np.asarray(a)), limbs_from_jax(np.asarray(b))
+    for path in plain_paths(monkeypatch):
+        assert cuda_ops.on_ints(a_t) == (path == "ints")
+        assert torch.equal(getattr(F, op)(a_t, b_t), theirs), path
 
 
 @pytest.mark.parametrize("name", sorted(FIELDS))
-def test_kernel_a_plain_against_ints(name):
-    """The plain version of kernel A, called directly, on broadcast shapes."""
+def test_kernel_a_plain_against_ints(name, monkeypatch):
+    """The plain version of kernel A, called directly, on broadcast shapes,
+    against python-int arithmetic on decoded values."""
     F, _ = FIELDS[name]
     p = F.p
     xs = _ints(p, 64, seed=4)
@@ -70,14 +87,16 @@ def test_kernel_a_plain_against_ints(name):
     a = F.encode_ints(xs, "cpu").reshape(4, 17, 8)
     b = F.encode_ints(ys, "cpu").reshape(4, 17, 8)
     scalar = F.encode_int(ys[10], "cpu")
-    for mode, fn in ((cuda_ops.MUL, lambda x, y: x * y),
-                     (cuda_ops.ADD, lambda x, y: x + y),
-                     (cuda_ops.SUB, lambda x, y: x - y)):
-        out = cuda_ops.binop_plain(F, mode, a, b)
-        assert out.shape == (4, 17, 8)
-        assert F.decode_ints(out) == [fn(x, y) % p for x, y in zip(xs, ys)]
-        out = cuda_ops.binop_plain(F, mode, a, scalar)
-        assert F.decode_ints(out) == [fn(x, ys[10]) % p for x in xs]
+    for path in plain_paths(monkeypatch):
+        for mode, fn in ((cuda_ops.MUL, lambda x, y: x * y),
+                         (cuda_ops.ADD, lambda x, y: x + y),
+                         (cuda_ops.SUB, lambda x, y: x - y)):
+            out = cuda_ops.binop_plain(F, mode, a, b)
+            assert out.shape == (4, 17, 8)
+            assert F.decode_ints(out) == [fn(x, y) % p
+                                          for x, y in zip(xs, ys)], path
+            out = cuda_ops.binop_plain(F, mode, a, scalar)
+            assert F.decode_ints(out) == [fn(x, ys[10]) % p for x in xs], path
 
 
 def test_unary_ops_and_inverses():

@@ -1,5 +1,6 @@
-"""Kernels A-D of halo2_tpu_torch against their plain PyTorch versions on a
-CUDA device, and a GPU proof against the CPU proof.  Every test needs the
+"""Kernels A-D, 8 and 9 of halo2_tpu_torch (BN254 and Pasta instances)
+against their plain PyTorch versions on a CUDA device, and GPU proofs (KZG
+and IPA) against CPU proofs.  Every test needs the
 card and skips without one.  The file imports nothing of JAX, so on a
 machine without JAX run it as
 
@@ -13,11 +14,16 @@ import pytest
 import torch
 
 from halo2_tpu_torch import api
-from halo2_tpu_torch._shared import host_msm, plonk_api
-from halo2_tpu_torch.commit import ParamsKZG
-from halo2_tpu_torch.curves import BN254_G1 as C, cuda_ec
-from halo2_tpu_torch.fields import BN254_FQ, BN254_FR, cuda_ops
-from halo2_tpu_torch.msm import StreamMSM, naive_msm
+from halo2_tpu_torch.commit import (ParamsIPA, ParamsKZG, ProverSHPLONK,
+                                    SingleStrategyKZG, VerifierSHPLONK)
+from halo2_tpu_torch.compat import plonk_api
+from halo2_tpu_torch.curves import BN254_G1 as C, PALLAS, VESTA, cuda_ec
+from halo2_tpu_torch.fields import (BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ,
+                                    cuda_ops)
+from halo2_tpu_torch.msm import StreamMSM, msm, naive_msm
+from halo2_tpu_torch.msm import bucket_scan as bs
+from halo2_tpu_torch.msm import stream_msm as sm
+from halo2_tpu_torch.msm.host_msm import host_msm
 from halo2_tpu_torch.msm.stream_msm import (stream_bucket,
                                             stream_bucket_plain, stream_keys)
 from halo2_tpu_torch.ntt import get_ntt
@@ -45,7 +51,8 @@ def _ints(p: int, n: int, seed: int) -> list:
     return [0, 1, p - 1] + vals
 
 
-@pytest.mark.parametrize("F", [BN254_FR, BN254_FQ], ids=["fr", "fq"])
+@pytest.mark.parametrize("F", [BN254_FR, BN254_FQ, PASTA_FP, PASTA_FQ],
+                         ids=["fr", "fq", "pasta-fp", "pasta-fq"])
 def test_kernel_a_matches_plain(F, cuda):
     xs, ys = _ints(F.p, 5000, 1), _ints(F.p, 5000, 2)[::-1]
     a, b = F.encode_ints(xs, cuda), F.encode_ints(ys, cuda)
@@ -58,7 +65,9 @@ def test_kernel_a_matches_plain(F, cuda):
                                           for x, y in zip(xs[:50], ys[:50])]
 
 
-def test_kernel_b_matches_plain(cuda):
+@pytest.mark.parametrize("C", [C, PALLAS, VESTA],
+                         ids=["bn254", "pallas", "vesta"])
+def test_kernel_b_matches_plain(C, cuda):
     n = 3000
     gen = C.from_affine_ints([(C.gen_x, C.gen_y)], cuda).expand(n, 3, 8)
     ks = C.Fr.encode_ints(_ints(C.Fr.p, n - 3, 3), cuda)
@@ -78,11 +87,12 @@ def test_kernel_b_matches_plain(cuda):
                        cuda_ec.ec_madd_plain(C, P, Qa, inf))
     pts = C.to_affine_ints(P[:40])
     assert C.to_affine_ints(C.double(P[:40])) == \
-        [host_msm().host_msm(C, [2], [p]) for p in pts]
+        [host_msm(C, [2], [p]) for p in pts]
 
 
-def test_kernel_c_matches_plain(cuda):
-    F = BN254_FR
+@pytest.mark.parametrize("F", [BN254_FR, PASTA_FP, PASTA_FQ],
+                         ids=["fr", "pasta-fp", "pasta-fq"])
+def test_kernel_c_matches_plain(F, cuda):
     for log_m, outer, inner in ((10, 2, 3), (9, 1, 8), (1, 3, 5)):
         m = 1 << log_m
         x = F.encode_ints(_ints(F.p, outer * m * inner - 3, log_m),
@@ -100,7 +110,8 @@ def test_kernel_c_matches_plain(cuda):
     assert torch.equal(ntt.inverse(ntt.forward(big)), big)
 
 
-def test_kernel_d_matches_plain_and_naive(cuda):
+@pytest.mark.parametrize("C", [C, VESTA], ids=["bn254", "vesta"])
+def test_kernel_d_matches_plain_and_naive(C, cuda):
     n = 1 << 10
     bases = C.generator_mul(C.Fr.encode_ints(_ints(C.Fr.p, n - 3, 6), cuda))
     desc = StreamMSM(C, bases)
@@ -113,13 +124,70 @@ def test_kernel_d_matches_plain_and_naive(cuda):
             C.to_affine_ints(naive_msm(C, s, bases)[None])
 
 
+@pytest.mark.parametrize("C", [C, VESTA], ids=["bn254", "vesta"])
+def test_kernel_8_matches_plain_and_naive(C, cuda):
+    n = 1 << 10
+    bases = C.generator_mul(C.Fr.encode_ints(_ints(C.Fr.p, n - 3, 8), cuda))
+    lanes = sm.unbaked_lanes(n, 43)
+    table = sm.pack_base_stream_table(C, bases, lanes)
+    for vals in (_ints(C.Fr.p, n - 3, 9), [0] * n, [C.Fr.p - 5] * n):
+        s = C.Fr.encode_ints(vals, cuda)
+        keys = sm.window_keys(C, s, table.shape[0], lanes)
+        assert torch.equal(sm.stream_bucket_windows(C, keys, table),
+                           sm.stream_bucket_windows_plain(C, keys, table))
+        assert C.to_affine_ints(sm.msm_stream_unbaked(C, s, table)[None]) \
+            == C.to_affine_ints(naive_msm(C, s, bases)[None])
+
+
+@pytest.mark.parametrize("C", [C, PALLAS, VESTA],
+                         ids=["bn254", "pallas", "vesta"])
+def test_kernel_9_matches_plain(C, cuda):
+    n = 1 << 12
+    pts = C.generator_mul(C.Fr.encode_ints(_ints(C.Fr.p, n - 3, 10), cuda))
+    pts[7::13] = C.identity((1,), cuda)
+    rows = bs.pack_affine_rows(C.batch_normalize(pts), C.is_identity(pts))
+    runs = torch.sort(torch.from_numpy(np.random.default_rng(11).integers(
+        0, 60, size=n)).to(torch.int32))[0]
+    for keys in (runs, torch.full((n,), 9, dtype=torch.int32)):
+        keys = keys.clone()
+        keys[-128:] = bs.SENTINEL_KEY
+        keys = keys.to(cuda)
+        for mode, data, k in ((bs.PACKED, rows, keys),
+                              (bs.AFFINE, rows, keys >> 1),
+                              (bs.PROJECTIVE, pts, keys >> 1)):
+            got = bs.scan_level(C, k, data, 64, mode)
+            want = bs.scan_level_plain(C, k, data, 64, mode)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    vals = _ints(C.Fr.p, n - 3, 12)
+    s = C.Fr.encode_ints(vals, cuda)
+    assert C.to_affine_ints(msm(C, s, pts)[None]) == \
+        [host_msm(C, vals, C.to_affine_ints(pts))]
+
+
 def test_gpu_proof_equals_cpu_proof(cuda):
     F = BN254_FR
-    circuit, inst = plonk_api().plonk_api_instance(F)
+    circuit, inst = plonk_api.plonk_api_instance(F)
     proofs = []
     for dev in ("cpu", cuda):
         params = ParamsKZG.new(5, device=dev)
         pk = api.keygen(F, params, 5, circuit)
+        proofs.append(api.create_proof(params, pk, [circuit], [inst],
+                                       random.Random(1),
+                                       multiopen_prover_cls=ProverSHPLONK))
+        assert api.verify(params, pk.vk, proofs[-1], [inst],
+                          multiopen_verifier_cls=VerifierSHPLONK,
+                          strategy_cls=SingleStrategyKZG)
+    assert proofs[0] == proofs[1]
+
+
+def test_gpu_ipa_proof_equals_cpu_proof(cuda):
+    F = PASTA_FP
+    circuit, inst = plonk_api.plonk_api_instance(F)
+    proofs = []
+    for dev in ("cpu", cuda):
+        params = ParamsIPA.new(VESTA, 6, device=dev)
+        pk = api.keygen(F, params, 6, circuit)
         proofs.append(api.create_proof(params, pk, [circuit], [inst],
                                        random.Random(1)))
         assert api.verify(params, pk.vk, proofs[-1], [inst])

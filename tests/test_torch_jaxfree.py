@@ -1,8 +1,12 @@
-"""halo2_tpu_torch imports and proves without JAX: a fresh interpreter with
-`jax` blocked imports the port, proves plonk_api at k=5 on the CPU and
-verifies the proof (and rejects a tampered one)."""
+"""halo2_tpu_torch stands alone: a fresh interpreter with `jax` and the JAX
+package `halo2_tpu` both blocked imports the port, proves plonk_api with
+KZG / SHPLONK and with IPA over Vesta at k=5 (the smallest k plonk_api
+fits) on the CPU, verifies
+both proofs and rejects tampered ones; and no file of the port or of
+chip_smoke.py names the JAX package."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -11,25 +15,45 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = r"""
 import random, sys
 sys.modules["jax"] = None
+sys.modules["halo2_tpu"] = None
 sys.path.insert(0, sys.argv[1])
 import torch
 torch.set_num_threads(1)
 from halo2_tpu_torch import api
-from halo2_tpu_torch._shared import plonk_api
-from halo2_tpu_torch.commit import ParamsKZG
-from halo2_tpu_torch.fields import BN254_FR as F
-circuit, inst = plonk_api().plonk_api_instance(F)
-params = ParamsKZG.new(5)
-pk = api.keygen(F, params, 5, circuit)
-proof = api.create_proof(params, pk, [circuit], [inst], random.Random(1))
-bad = bytearray(proof)
-bad[100] ^= 1
-ok = api.verify(params, pk.vk, proof, [inst])
-rejected = not api.verify(params, pk.vk, bytes(bad), [inst])
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
-print("RESULT", ok, rejected, len(proof))
+from halo2_tpu_torch.commit import (ParamsIPA, ParamsKZG, ProverSHPLONK,
+                                    SingleStrategyKZG, VerifierSHPLONK)
+from halo2_tpu_torch.compat import plonk_api
+from halo2_tpu_torch.curves import VESTA
+from halo2_tpu_torch.fields import BN254_FR, PASTA_FP
+
+def run(F, params, k, **kw):
+    circuit, inst = plonk_api.plonk_api_instance(F)
+    pk = api.keygen(F, params, k, circuit)
+    proof = api.create_proof(params, pk, [circuit], [inst], random.Random(1),
+                             **{a: b for a, b in kw.items()
+                                if a == "multiopen_prover_cls"})
+    vkw = {a: b for a, b in kw.items() if a != "multiopen_prover_cls"}
+    bad = bytearray(proof)
+    bad[100] ^= 1
+    ok = api.verify(params, pk.vk, proof, [inst], **vkw)
+    rejected = not api.verify(params, pk.vk, bytes(bad), [inst], **vkw)
+    return ok, rejected, len(proof)
+
+kzg = run(BN254_FR, ParamsKZG.new(5, device="cpu"), 5,
+          multiopen_prover_cls=ProverSHPLONK,
+          multiopen_verifier_cls=VerifierSHPLONK,
+          strategy_cls=SingleStrategyKZG)
+ipa = run(PASTA_FP, ParamsIPA.new(VESTA, 5, device="cpu"), 5)
+loaded = [m for m in sys.modules if sys.modules[m] is not None and
+          (m.split(".")[0] in ("jax", "halo2_tpu"))]
+assert not loaded, loaded
+print("RESULT", *kzg, *ipa)
 """
+
+# A reference to the JAX package from the port's files: an import of it, a
+# module path into it, or a file path into it.
+_REF = re.compile(r"\bhalo2_tpu(\.|/| import|\s*$)|\bfrom halo2_tpu\s"
+                  r"|\bimport halo2_tpu\b(?!_)", re.M)
 
 
 def test_port_proves_and_verifies_without_jax():
@@ -37,4 +61,21 @@ def test_port_proves_and_verifies_without_jax():
                          capture_output=True, text=True, timeout=900,
                          cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "RESULT True True 2208" in res.stdout, res.stdout[-2000:]
+    assert "RESULT True True 2208 True True 2752" in res.stdout, res.stdout[-2000:]
+
+
+def test_port_names_no_jax_package():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, dirs, names in os.walk(os.path.join(ROOT, "halo2_tpu_torch")):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        files += [os.path.join(base, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
+    hits = []
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if _REF.search(line):
+                    hits.append(f"{os.path.relpath(path, ROOT)}:{i}: "
+                                f"{line.strip()}")
+    assert len(files) > 40
+    assert not hits, "\n".join(hits)

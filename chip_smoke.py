@@ -2,26 +2,33 @@
 
     python3 chip_smoke.py
 
-Builds the six CUDA kernels from halo2_tpu_torch/csrc and holds each of
+Builds the port's CUDA kernels from halo2_tpu_torch/csrc and holds each of
 them, and each of their BN254 and Pasta instances, against its plain
 PyTorch version on the card word for word.  Proves on the CPU (plain
 versions) and on the GPU (kernels) and requires equal proof bytes: KZG
-plonk_api at k=8 and IPA/Vesta plonk_api at k=6.  Then it drives three
+plonk_api at k=8 and IPA/Vesta plonk_api at k=6.  Then it drives five
 main paths, each with the launch counts set to 0 just before it and read
 just after:
 
   k=18 plonk_api, KZG / SHPLONK  (kernels A, B, C, D)
   k=20 lookup_heavy, KZG / SHPLONK, on the unbaked stream table (kernel 8)
   k=14 plonk_api, IPA / Vesta, opening MSMs on the segmented scan (kernel 9)
+  bench micro k=18: the port bench's micro stage (MSM, NTT, kernel 10)
+  probes: the ALU, gather and transpose probes (kernels 10-15)
 
-each with params, keygen, a first and steady proves with their step
-tables, verify, and a tampered proof that must be rejected, then one
-profiled prove (device busy and idle share).  Kernel D is held against its
-plain version at the k=18 table shape, kernel 8 at the k=20 one, and on
+the first three each with params, keygen, a first and steady proves with
+their step tables, verify, and a tampered proof that must be rejected, then
+one profiled prove (device busy and idle share).  Kernel D is held against
+its plain version at the k=18 table shape, kernel 8 at the k=20 one, and on
 the IPA path every kernel D and kernel 9 call of one more prove is
 recorded and held against its plain version on its own inputs.  At k=20
 one MSM through the unbaked table must equal, as a group element, the same
-MSM through a baked table built for the check.  Any failure exits
+MSM through a baked table built for the check.  Kernels 10-15 are held
+against their plain versions at the bench's and the probes' shapes, and
+timed beside the PyTorch call that computes the same function where there
+is one (gather: `index_select`, transposes: `.t().contiguous()`); the
+measured IMAD rates (kernels 10 and 12) are printed beside the guide's,
+with each kernel's share of its bound at both.  Any failure exits
 non-zero.
 The line before the last is a JSON object of per-kernel results (time,
 plain version's time, bound, launches); the last line is
@@ -39,8 +46,6 @@ import contextlib
 import json
 import os
 import random
-import re
-import subprocess
 import sys
 import time
 
@@ -53,13 +58,6 @@ K_LOOKUP = 20
 K_IPA = 14
 K_IPA_CMP = 6
 N_STEADY_BIG = 2      # steady proves at K_LOOKUP and K_IPA
-
-# H100 SXM: HBM3 rate (NVIDIA's data sheet); 32-bit integer multiply-adds
-# per clock per SM for compute capability 9.0 (CUDA C++ Programming Guide,
-# arithmetic instruction throughput table); the clock is read from the card.
-HBM_BYTES_PER_S = 3.35e12
-N_SM = 132
-IMAD_PER_CLK_SM = 64
 
 # The reference's TPU kernels, by file and line in the JAX package.
 REFERENCE = "halo2_tpu"
@@ -93,18 +91,13 @@ def main() -> int:
     sys.modules.setdefault(REFERENCE, None)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from halo2_tpu_torch import _build
+    from halo2_tpu_torch.tools import card
 
     t_start = time.time()
     walls: dict = {}
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0])
+    smi = card.name_and_power()
+    clock_mhz = card.max_sm_clock_mhz()
     log(smi)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
@@ -112,7 +105,7 @@ def main() -> int:
     with phase("build", walls):
         _build.library()
         log(f"[build] nvcc {'%.2f s' % _build.build_seconds if _build.build_seconds else 'reused'}")
-        bound = Bounds(sass_multiplies(_build), clock_mhz)
+        bound = card.Bounds(card.sass_multiplies(), clock_mhz)
 
     results = {}
     with phase("kernels A-D, BN254", walls):
@@ -144,6 +137,14 @@ def main() -> int:
     with phase(f"kernels D and 9 at the k={K_IPA} prove's calls", walls):
         check_ipa_main(torch, params, pk, circuit, inst, bound, results)
     del params, pk
+    with phase(f"bench micro k={K_MAIN}", walls):
+        run_bench_micro(torch, dev, counts)
+    with phase("kernel 10 at 2^21", walls):
+        results["h2_mont_repeat"] = check_kernel_10(torch, dev, bound)
+    with phase("probes", walls):
+        run_probes(torch, counts)
+    with phase("kernels 11-15 at the probes' shapes", walls):
+        check_probes(torch, dev, bound, results)
 
     for name, r in results.items():
         r["launches"] = sum(c.get(name, 0) for c in counts.values())
@@ -152,6 +153,7 @@ def main() -> int:
     missing = [k for k in _build.KERNELS if k not in results]
     if missing:
         raise AssertionError(f"kernels without a result: {missing}")
+    shares_at_measured_rates(results)
     total = time.time() - t_start
     log("[walls] " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
         + f"; whole run {total:.2f} s")
@@ -164,82 +166,8 @@ def main() -> int:
 
 
 # ----------------------------------------------------------------------
-# bounds: the least time the card could take for a kernel's work
+# kernel checks (bounds and timing: halo2_tpu_torch/tools/card.py)
 # ----------------------------------------------------------------------
-
-def sass_multiplies(_build) -> dict:
-    """Integer multiply instructions (IMAD, IMAD.WIDE, IMAD.HI, ...; not the
-    IMAD.MOV / IMAD.IADD / IMAD.SHL moves) of each kernel function in the
-    built library's SASS, from cuobjdump."""
-    cub = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    out = subprocess.run([cub, "-sass", _build.lib_path], capture_output=True,
-                         text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in out.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn and re.search(r"\bIMAD\b|\bIMAD\.", line) and not re.search(
-                r"IMAD\.(MOV|IADD|SHL)", line):
-            counts[fn] += 1
-    if not counts:
-        raise AssertionError("cuobjdump found no kernel functions")
-    return counts
-
-
-class Bounds:
-    """bound_ms = max(bytes / HBM rate, multiplies / (SMs x rate x clock)),
-    with the multiplies per element taken from the SASS."""
-
-    def __init__(self, mults: dict, clock_mhz: float):
-        self.mults = mults
-        self.rate = N_SM * IMAD_PER_CLK_SM * clock_mhz * 1e6
-
-    def per_elem(self, *parts) -> int:
-        hits = [v for k, v in self.mults.items() if all(p in k for p in parts)]
-        if len(hits) != 1:
-            raise AssertionError(f"SASS function {parts}: {len(hits)} hits")
-        return hits[0]
-
-    def __call__(self, bytes_moved: float, multiplies: float) -> dict:
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = multiplies / self.rate * 1e3
-        return dict(bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=None)
-
-
-# ----------------------------------------------------------------------
-# kernel checks
-# ----------------------------------------------------------------------
-
-def cuda_ms(torch, fn, reps: int = 3) -> float:
-    """Mean time of fn() on the card by CUDA events, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def timed(torch, fn):
-    """(fn(), its time on the card in ms), one run by CUDA events: for the
-    plain versions, whose single run is both the reference output and
-    the timing."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(end)
-
 
 def max_err(torch, a, b) -> int:
     """Largest word difference (0 means bit-identical)."""
@@ -269,26 +197,30 @@ def random_elems(torch, F, n: int, seed: int, dev):
     return F.to_mont(t)
 
 
-def _entry(name, source, line, err, **kw):
+def _entry(name, source, line, err, root=REFERENCE, **kw):
+    """A kernel's entry; `line` is file:line of the TPU kernel in the JAX
+    package (root None: in the repo's bench.py or tools/)."""
     return dict(name=name, route="cuda", source=f"halo2_tpu_torch/csrc/{source}",
-                replaces=f"{REFERENCE}/{line}", max_abs_err=err, **kw)
+                replaces=f"{root}/{line}" if root else line, max_abs_err=err,
+                **kw)
 
 
 def check_field(torch, dev, F, n: int, seed: int, bound, tag: str):
     """Kernel A for field F at n elements: mul / add / sub equal to plain;
     the mul timed."""
     from halo2_tpu_torch.fields import cuda_ops
+    from halo2_tpu_torch.tools import card
     a = random_elems(torch, F, n, seed, dev)
     b = random_elems(torch, F, n, seed + 10, dev).flip(0)
     err, plain = 0, None
     for mode, name in ((cuda_ops.MUL, "mul"), (cuda_ops.ADD, "add"),
                        (cuda_ops.SUB, "sub")):
-        want, t = timed(torch, lambda: cuda_ops.binop_plain(F, mode, a, b))
+        want, t = card.timed(lambda: cuda_ops.binop_plain(F, mode, a, b))
         plain = t if plain is None else plain
         err = max(err, expect_equal(
             torch, f"field {name} {F.name}", cuda_ops.binop(F, mode, a, b),
             want))
-    ms = cuda_ms(torch, lambda: cuda_ops.binop(F, cuda_ops.MUL, a, b), 10)
+    ms = card.cuda_ms(lambda: cuda_ops.binop(F, cuda_ops.MUL, a, b), 10)
     b_ = bound(3 * 32 * n, n * bound.per_elem(
         "k_field_binop", tag, "Li0E"))
     log(f"[kernel A] {F.name} mul/add/sub at 2^{n.bit_length() - 1}: equal; "
@@ -300,6 +232,7 @@ def check_field(torch, dev, F, n: int, seed: int, bound, tag: str):
 def check_ec(torch, dev, G, m: int, seed: int, bound, tag: str) -> dict:
     """Kernel B for curve G at m points: random, identities, P+P, P+(-P)."""
     from halo2_tpu_torch.curves import cuda_ec
+    from halo2_tpu_torch.tools import card
     P = G.generator_mul(random_elems(torch, G.Fr, m, seed, dev))
     Q = G.generator_mul(random_elems(torch, G.Fr, m, seed + 1, dev))
     Q[: m // 4] = P[: m // 4]                      # P + P
@@ -316,9 +249,9 @@ def check_ec(torch, dev, G, m: int, seed: int, bound, tag: str) -> dict:
              lambda: cuda_ec.ec_madd_plain(G, P, Qa, inf), 96 + 64 + 1 + 96),
             ("double", 251, lambda: cuda_ec.ec_double(G, P),
              lambda: cuda_ec.ec_double_plain(G, P), 2 * 96)):
-        want, plain = timed(torch, plain_fn)
+        want, plain = card.timed(plain_fn)
         err = expect_equal(torch, f"ec {op} {G.name}", kernel(), want)
-        ms = cuda_ms(torch, kernel, 10)
+        ms = card.cuda_ms(kernel, 10)
         fn = {"add": "k_ec_addI", "madd": "k_ec_maddI",
               "double": "k_ec_doubleI"}[op]
         b_ = bound(io * m, m * bound.per_elem(fn, tag))
@@ -345,6 +278,7 @@ def check_ntt(torch, dev, F, log_ns, seed: int, bound, tag: str):
     equal to the CPU path at 2^11."""
     from halo2_tpu_torch.ntt import get_ntt
     from halo2_tpu_torch.ntt.fused import base_ntt, base_ntt_plain
+    from halo2_tpu_torch.tools import card
     err, timing = 0, None
     for log_n in log_ns:
         ntt = get_ntt(F, log_n, dev)
@@ -367,12 +301,12 @@ def check_ntt(torch, dev, F, log_ns, seed: int, bound, tag: str):
         get_ntt(F, 11, dev).forward(small).cpu(),
         get_ntt(F, 11, "cpu").forward(small.cpu())))
     xb, table, lm = timing
-    ms = cuda_ms(torch, lambda: base_ntt(F, xb, table, lm), 10)
-    plain = timed(torch, lambda: base_ntt_plain(F, xb, table, lm))[1]
+    ms = card.cuda_ms(lambda: base_ntt(F, xb, table, lm), 10)
+    plain = card.timed(lambda: base_ntt_plain(F, xb, table, lm))[1]
     b_ = ntt_bound(bound, F, tag, lm, xb.shape[2])
     ntt = get_ntt(F, log_ns[-1], dev)
     x = random_elems(torch, F, 1 << log_ns[-1], seed, dev)
-    full = cuda_ms(torch, lambda: ntt.forward(x), 3)
+    full = card.cuda_ms(lambda: ntt.forward(x), 3)
     log(f"[kernel C] {F.name} base NTT in 2^{log_ns} transforms: equal; "
         f"base 2^{lm} x 2^{xb.shape[2]} {ms:.3f} ms vs plain {plain:.1f} ms; "
         f"bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}); whole forward "
@@ -794,16 +728,17 @@ def check_msm_main(torch, params, bound) -> dict:
     from halo2_tpu_torch.msm.stream_msm import (stream_bucket,
                                                 stream_bucket_plain,
                                                 stream_keys)
+    from halo2_tpu_torch.tools import card
     G = params.curve
     desc = params.engine.msm_backend.get_base_descriptor(G, params.g_lagrange)
     s = random_elems(torch, G.Fr, params.n, 21, params.device)
     keys = stream_keys(G, s, desc.lanes)
-    want, plain = timed(torch, lambda: stream_bucket_plain(G, keys,
+    want, plain = card.timed(lambda: stream_bucket_plain(G, keys,
                                                            desc.table))
     err = expect_equal(torch, f"stream buckets at k={params.k}",
                        stream_bucket(G, keys, desc.table), want)
-    ms = cuda_ms(torch, lambda: stream_bucket(G, keys, desc.table), 5)
-    msm_ms = cuda_ms(torch, lambda: desc(s), 3)
+    ms = card.cuda_ms(lambda: stream_bucket(G, keys, desc.table), 5)
+    msm_ms = card.cuda_ms(lambda: desc(s), 3)
     steps, _, lanes = desc.table.shape
     b_ = stream_bound(bound, G, "Bn254G1", "k_stream_bucketI", 1, steps, lanes)
     log(f"[kernel D] stream buckets at k={params.k} "
@@ -819,6 +754,7 @@ def check_unbaked_main(torch, params, bound) -> dict:
     baked table built for this check."""
     from halo2_tpu_torch.msm import stream_msm as sm
     from halo2_tpu_torch.msm.bucket_scan import n_windows_for
+    from halo2_tpu_torch.tools import card
     G = params.curve
     desc = params.engine.msm_backend.get_base_descriptor(G, params.g_lagrange)
     if desc.baked:
@@ -828,22 +764,22 @@ def check_unbaked_main(torch, params, bound) -> dict:
     nw = n_windows_for(G.Fr, sm.STREAM_C)
     s = random_elems(torch, G.Fr, params.n, 22, params.device)
     keys = sm.window_keys(G, s, steps, lanes)
-    want, plain = timed(torch, lambda: sm.stream_bucket_windows_plain(
+    want, plain = card.timed(lambda: sm.stream_bucket_windows_plain(
         G, keys, table))
     err = expect_equal(torch, f"window buckets at k={params.k}",
                        sm.stream_bucket_windows(G, keys, table), want)
     del want
-    ms = cuda_ms(torch, lambda: sm.stream_bucket_windows(G, keys, table), 3)
+    ms = card.cuda_ms(lambda: sm.stream_bucket_windows(G, keys, table), 3)
     b_ = stream_bound(bound, G, "Bn254G1", "k_stream_bucket_windowsI", nw,
                       steps, lanes)
-    unbaked_ms = cuda_ms(torch, lambda: desc(s), 3)
+    unbaked_ms = card.cuda_ms(lambda: desc(s), 3)
     got = G.to_affine_ints(desc(s)[None])
     t0 = time.time()
     baked_lanes = sm.lanes_for(nw * params.n)
     baked = sm.bake_stream_table(G, params.g_lagrange, baked_lanes)
     torch.cuda.synchronize()
     t_bake = time.time() - t0
-    baked_ms = cuda_ms(torch, lambda: sm.msm_stream_baked(G, s, baked), 3)
+    baked_ms = card.cuda_ms(lambda: sm.msm_stream_baked(G, s, baked), 3)
     want = G.to_affine_ints(sm.msm_stream_baked(G, s, baked)[None])
     log(f"[kernel 8] window buckets at k={params.k} ({nw} windows x "
         f"{tuple(table.shape)}): equal; {ms:.3f} ms vs plain {plain:.1f} ms; "
@@ -893,6 +829,7 @@ def check_ipa_main(torch, params, pk, circuit, inst, bound, results):
     from halo2_tpu_torch.msm import bucket_scan as bs
     from halo2_tpu_torch.msm import naive_msm
     from halo2_tpu_torch.msm import stream_msm as sm
+    from halo2_tpu_torch.tools import card
     G = params.curve
     tag = f"IPA plonk_api k={params.k}"
     with recording(bs, "scan_level") as scans, \
@@ -933,7 +870,7 @@ def check_ipa_main(torch, params, pk, circuit, inst, bound, results):
     scans_1 = first_of_each(scans, lambda a: (a[1].shape[0], a[3], a[4]))
     for args, (finals, lane_keys), _ in scans_1:
         keys, mode = args[1], args[4]
-        (want, want_keys), t = timed(torch, lambda: bs.scan_level_plain(*args))
+        (want, want_keys), t = card.timed(lambda: bs.scan_level_plain(*args))
         err_9 = max(err_9, expect_equal(
             torch, f"{tag} scan mode {mode} M={keys.shape[0]} "
             f"block {args[3]}", finals, want))
@@ -943,14 +880,14 @@ def check_ipa_main(torch, params, pk, circuit, inst, bound, results):
             big, plain_ms = args, t
     modes = sorted({a[4] for a, _, _ in scans})
     m = big[1].shape[0]
-    ms = cuda_ms(torch, lambda: bs.scan_level(*big), 5)
+    ms = card.cuda_ms(lambda: bs.scan_level(*big), 5)
     width = 4 * (3 * 8 if big[4] == bs.PROJECTIVE else bs.ROW_WORDS)
     b_ = bound((4 + width) * m + 100 * (m // big[3]),
                m * bound.per_elem("k_scan_levelI", SASS_TAG[G.name],
                                   SCAN_SASS[big[4]]))
     n = params.n // 2
     s = random_elems(torch, G.Fr, n, 23, params.device)
-    msm_ms = cuda_ms(torch, lambda: bs.msm_variable(G, s, params.g[:n], 8), 1)
+    msm_ms = card.cuda_ms(lambda: bs.msm_variable(G, s, params.g[:n], 8), 1)
     log(f"[kernel 9] {tag}: the first of the prove's {len(scans)} calls of "
         f"each of {len(scans_1)} shapes (modes {modes}) equal to plain; the "
         f"largest ({m} elements, mode "
@@ -979,6 +916,177 @@ def check_ipa_main(torch, params, pk, circuit, inst, bound, results):
         raise AssertionError("blind term: card and host differ")
     log(f"[{tag}] one blind term [r]W: host {t_host * 1e3:.2f} ms, on the "
         f"card as a one-point MSM {t_card * 1e3:.2f} ms; equal")
+
+
+# ----------------------------------------------------------------------
+# the port's bench and probes (kernels 10-15)
+# ----------------------------------------------------------------------
+
+def run_bench_micro(torch, dev, counts):
+    """The port's micro bench, `halo2_tpu_torch.bench.stage_micro`, in this
+    process at the reference's sizes (MSM and NTT at 2^18, kernel 10 at
+    2^21), with its guards; its result JSON is printed."""
+    from halo2_tpu_torch import bench
+    tag = f"bench micro k={K_MAIN}"
+    res = run_path(torch, tag, counts, (
+        "h2_mont_repeat", "h2_stream_bucket", "h2_ntt_base", "h2_field_binop",
+        "h2_ec_add"), lambda: bench.stage_micro(dev, k=K_MAIN))
+    log(f"[{tag}] {json.dumps(res)}")
+
+
+def mont_entry(torch, dev, F, tag, seed, bound, reps=64, n=1 << 21):
+    """Kernel 10 / 11 on n canonical elements of F, `reps` products each:
+    equal to its plain version (reps calls of kernel A's plain product),
+    timed, and its multiply rate as IMAD per clock per SM."""
+    from halo2_tpu_torch.tools import alu_probe as ap
+    from halo2_tpu_torch.tools import card
+    a = random_elems(torch, F, n, seed, dev)
+    b = random_elems(torch, F, n, seed + 1, dev)
+    want, plain = card.timed(lambda: ap.mont_repeat_plain(F, a, b, reps))
+    err = expect_equal(torch, f"mont_repeat {F.name} x{reps}",
+                       ap.mont_repeat(F, a, b, reps), want)
+    del want
+    ms = card.cuda_ms(lambda: ap.mont_repeat(F, a, b, reps), 5)
+    per_mul = bound.per_elem("k_mont_repeat", tag)
+    b_ = bound(3 * 32 * n, n * reps * per_mul)
+    imad = bound.imad_per_clk_sm(n * reps * per_mul / ms * 1e3)
+    log(f"[kernel 10/11] {F.name} x{reps} at 2^{n.bit_length() - 1}: equal; "
+        f"{ms:.3f} ms vs plain {plain:.1f} ms; bound {b_['bound_ms']:.3f} ms "
+        f"({b_['bound_by']}); {n * reps / ms / 1e6:.2f} G products/s, "
+        f"{per_mul} IMAD each: {imad:.1f} IMAD per clock per SM (the "
+        f"guide's {card.IMAD_PER_CLK_SM})")
+    return err, dict(ms=ms, plain_ms=plain, reps=reps, imad_per_product=per_mul,
+                     imad_per_clk_sm=imad, **b_)
+
+
+def check_kernel_10(torch, dev, bound) -> dict:
+    """Kernel 10 (BN254 Fr) against its plain version at the bench's shape,
+    rk = 2^21, with its first reps = 64 (the plain version: 64 products of
+    kernel A's plain version at 2^21, about 6 s)."""
+    from halo2_tpu_torch.fields import BN254_FR
+    err, r = mont_entry(torch, dev, BN254_FR, "Bn254Fr", 61, bound)
+    return _entry("mont_repeat", "alu.cu", "bench.py:249", err, root=None, **r)
+
+
+def run_probes(torch, counts):
+    """The three probes' sweeps, `main()` of each module of
+    halo2_tpu_torch/tools, as the card's path for kernels 11-15; their own
+    kernel-vs-library comparisons must hold."""
+    from halo2_tpu_torch.tools import (alu_probe, dma_gather_probe,
+                                       transpose_probe)
+    out = run_path(torch, "probes", counts, (
+        "h2_mont_repeat", "h2_u32_mul_repeat", "h2_gather_rows",
+        "h2_limb_T_fwd", "h2_limb_T_bwd"), lambda: dict(
+            alu=alu_probe.main(), gather=dma_gather_probe.main(),
+            transpose=transpose_probe.main()))
+    bad = [f"{probe} {key}" for probe in ("gather", "transpose")
+           for key, v in out[probe].items() if not v["equal"]]
+    if bad:
+        raise AssertionError(f"probes: kernel and library differ: {bad}")
+
+
+def check_probes(torch, dev, bound, results):
+    """Rows 11-15 at the reference's shapes, each held word for word
+    against its plain version and timed by CUDA events beside it and, for
+    rows 13-15, beside the PyTorch call that computes the same function
+    (`index_select`, `.t().contiguous()`): Montgomery products over BN254
+    Fq (2^21 x 64), the u32 chain on (8, 2^21) lanes (its deepest probe
+    chain, 1,024 steps), the gather of 20 2^18 rows from a 2^18-row table at
+    widths 128 and 64, and both transposes at R = 2^21."""
+    from halo2_tpu_torch.fields import BN254_FQ
+    from halo2_tpu_torch.tools import alu_probe as ap
+    from halo2_tpu_torch.tools import card
+    from halo2_tpu_torch.tools import dma_gather_probe as dg
+    from halo2_tpu_torch.tools import transpose_probe as tp
+    err, r = mont_entry(torch, dev, BN254_FQ, "Bn254Fq", 63, bound)
+    results["h2_mont_repeat"]["max_abs_err"] = max(
+        results["h2_mont_repeat"]["max_abs_err"], err)
+    results["h2_mont_repeat"]["instances"] = {
+        BN254_FQ.name: dict(replaces="tools/alu_probe.py:56", **r)}
+
+    n, reps = 1 << 21, 1024
+    a, b = ap.random_u32((8, n), 65, dev), ap.random_u32((8, n), 66, dev)
+    want, plain = card.timed(lambda: ap.u32_mul_repeat_plain(a, b, reps))
+    err = expect_equal(torch, f"u32_mul_repeat x{reps}",
+                       ap.u32_mul_repeat(a, b, reps), want)
+    del want
+    ms = card.cuda_ms(lambda: ap.u32_mul_repeat(a, b, reps), 5)
+    b_ = bound(3 * 4 * 8 * n, 8 * n * reps)
+    imad = bound.imad_per_clk_sm(8 * n * reps / ms * 1e3)
+    log(f"[kernel 12] u32 chain x{reps} on (8, 2^21): equal; {ms:.3f} ms vs "
+        f"plain {plain:.1f} ms; bound {b_['bound_ms']:.3f} ms "
+        f"({b_['bound_by']}); {imad:.1f} IMAD per clock per SM (the guide's "
+        f"{card.IMAD_PER_CLK_SM})")
+    results["h2_u32_mul_repeat"] = _entry(
+        "u32_mul_repeat", "alu.cu", "tools/alu_probe.py:81", err, root=None,
+        ms=ms, plain_ms=plain, reps=reps, imad_per_clk_sm=imad, **b_)
+
+    rows = 1 << K_MAIN
+    m = 20 * rows
+    idx = dg.random_idx(m, rows, 67, dev)
+    entry = None
+    for width in (128, 64):
+        tbl = dg.mk_tbl(rows, width, dev)
+        want, plain = card.timed(lambda: dg.gather_rows_plain(idx, tbl))
+        err = expect_equal(torch, f"gather_rows width {width}",
+                           dg.gather_rows(idx, tbl), want)
+        del want
+        ms = card.cuda_ms(lambda: dg.gather_rows(idx, tbl), 5)
+        b_ = bound(2 * m * width * 4 + 4 * m, 0)
+        b_["library_ms"] = card.cuda_ms(lambda: tbl.index_select(0, idx), 5)
+        log(f"[kernel 13] gather of {m} rows of {width} words: equal; "
+            f"{ms:.3f} ms vs index_select {b_['library_ms']:.3f} ms; bound "
+            f"{b_['bound_ms']:.3f} ms ({b_['bound_by']})")
+        r = dict(ms=ms, plain_ms=plain, **b_)
+        if entry is None:
+            entry = _entry("gather_rows", "move.cu",
+                           "tools/dma_gather_probe.py:54", err, root=None,
+                           width=width, **r)
+        else:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry["instances"] = {f"width {width}": r}
+    results["h2_gather_rows"] = entry
+    del idx, tbl
+
+    x = ap.random_u32((8 << 18, 16), 68, dev)
+    xt = tp.transpose_plain(x)
+    for name, fn, arg, line in (("fwd", tp.limb_T_fwd, x, 42),
+                                ("bwd", tp.limb_T_bwd, xt, 68)):
+        want, plain = card.timed(lambda: tp.transpose_plain(arg))
+        err = expect_equal(torch, f"limb_T_{name}", fn(arg), want)
+        del want
+        ms = card.cuda_ms(lambda: fn(arg), 10)
+        b_ = bound(2 * arg.numel() * 4, 0)
+        b_["library_ms"] = card.cuda_ms(lambda: arg.t().contiguous(), 10)
+        log(f"[kernel {14 if name == 'fwd' else 15}] transpose "
+            f"{tuple(arg.shape)}: equal; {ms:.4f} ms vs .t().contiguous() "
+            f"{b_['library_ms']:.4f} ms; bound {b_['bound_ms']:.4f} ms "
+            f"({b_['bound_by']})")
+        results[f"h2_limb_T_{name}"] = _entry(
+            f"limb_T_{name}", "move.cu", f"tools/transpose_probe.py:{line}",
+            err, root=None, ms=ms, plain_ms=plain, **b_)
+
+
+def shares_at_measured_rates(results):
+    """Each kernel's time against its bound at the guide's IMAD rate (the
+    `bound_ms` of the kernels line) and against the same bound at the rate
+    the card reached in this run (`bound_ms_measured`): kernel 12's for
+    kernel 12, kernel 10's for every kernel made of Montgomery products."""
+    from halo2_tpu_torch.tools import card
+    u32 = results["h2_u32_mul_repeat"]["imad_per_clk_sm"]
+    mont = results["h2_mont_repeat"]["imad_per_clk_sm"]
+    log(f"[rates] measured IMAD per clock per SM (max SM clock): u32 chain "
+        f"(kernel 12) {u32:.1f}, Montgomery product (kernel 10) {mont:.1f}; "
+        f"the guide's {card.IMAD_PER_CLK_SM}, which every bound_ms uses")
+    for r in results.values():
+        rate = u32 if r["name"] == "u32_mul_repeat" else mont
+        for label, d in [("", r)] + list(r.get("instances", {}).items()):
+            d["bound_ms_measured"] = max(
+                d["bytes_ms"], d["ops_ms"] * card.IMAD_PER_CLK_SM / rate)
+            log(f"[share] {r['name']} {label}: {d['ms']:.4f} ms; bound "
+                f"{d['bound_ms']:.4f} ms (share {d['bound_ms'] / d['ms']:.3f}); "
+                f"at the measured rate {d['bound_ms_measured']:.4f} ms (share "
+                f"{d['bound_ms_measured'] / d['ms']:.3f})")
 
 
 if __name__ == "__main__":

@@ -29,7 +29,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("field.cu", "ec.cu", "ntt.cu", "msm.cu", "scan.cu")
+SOURCES = ("field.cu", "ec.cu", "ntt.cu", "msm.cu", "scan.cu", "alu.cu",
+           "move.cu")
 HEADERS = ("arith.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")

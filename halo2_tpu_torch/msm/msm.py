@@ -23,6 +23,14 @@ def pippenger_msm(curve: Curve, scalars_mont, points, c: int = 8,
     return msm_variable(curve, scalars_mont, points, c, block)
 
 
+def auto_c(n: int) -> int:
+    """The reference's window width for an n-point variable-base MSM
+    (chosen on its TPU, c = 13 at k = 18); the port's bench keeps it in the
+    roofline's window count so that its numbers compare with the
+    reference's."""
+    return max(4, min(13, int(n).bit_length() - 4))
+
+
 def msm(curve: Curve, scalars_mont, points):
     """The `best_multiexp` dispatch with the reference's window rule: naive
     up to 32 points, else Pippenger with c = 8 from 2^12 points, c = 4

@@ -1,4 +1,4 @@
-"""Kernels A-D, 8 and 9 of halo2_tpu_torch (BN254 and Pasta instances)
+"""Kernels A-D and 8-15 of halo2_tpu_torch (BN254 and Pasta instances)
 against their plain PyTorch versions on a CUDA device, and GPU proofs (KZG
 and IPA) against CPU proofs.  Every test needs the
 card and skips without one.  The file imports nothing of JAX, so on a
@@ -28,6 +28,7 @@ from halo2_tpu_torch.msm.stream_msm import (stream_bucket,
                                             stream_bucket_plain, stream_keys)
 from halo2_tpu_torch.ntt import get_ntt
 from halo2_tpu_torch.ntt.fused import base_ntt, base_ntt_plain, stage_table
+from halo2_tpu_torch.tools import alu_probe, dma_gather_probe, transpose_probe
 
 # The plain versions run many small tensor ops: one thread per worker
 # is as fast and leaves the other cores to the other test workers.
@@ -192,3 +193,32 @@ def test_gpu_ipa_proof_equals_cpu_proof(cuda):
                                        random.Random(1)))
         assert api.verify(params, pk.vk, proofs[-1], [inst])
     assert proofs[0] == proofs[1]
+
+
+@pytest.mark.parametrize("F", [BN254_FR, BN254_FQ], ids=["fr", "fq"])
+def test_kernels_10_11_match_plain(F, cuda):
+    a = alu_probe.random_elems(F, 5000, 13, cuda)
+    b = alu_probe.random_elems(F, 5000, 14, cuda)
+    for reps in (0, 1, 7):
+        assert torch.equal(alu_probe.mont_repeat(F, a, b, reps),
+                           alu_probe.mont_repeat_plain(F, a, b, reps))
+
+
+def test_kernel_12_matches_plain(cuda):
+    a = alu_probe.random_u32((8, 3000), 15, cuda)
+    b = alu_probe.random_u32((8, 3000), 16, cuda)
+    for reps in (1, 17, 64):
+        assert torch.equal(alu_probe.u32_mul_repeat(a, b, reps),
+                           alu_probe.u32_mul_repeat_plain(a, b, reps))
+
+
+def test_kernels_13_15_match_plain(cuda):
+    idx = dma_gather_probe.random_idx(3001, 700, 17, cuda)
+    for width in (128, 64, 4):
+        tbl = dma_gather_probe.mk_tbl(700, width, cuda)
+        assert torch.equal(dma_gather_probe.gather_rows(idx, tbl),
+                           dma_gather_probe.gather_rows_plain(idx, tbl))
+    for shape in ((3001, 16), (16, 3001), (33, 65), (7, 9)):
+        x = alu_probe.random_u32(shape, 18, cuda)
+        for fn in (transpose_probe.limb_T_fwd, transpose_probe.limb_T_bwd):
+            assert torch.equal(fn(x), transpose_probe.transpose_plain(x))

@@ -1,13 +1,12 @@
-"""The port's MSMs against the JAX reference, with adversarial scalars: the
-fixed-base stream MSM (kernel D's and kernel 8's plain versions, the lane
-tree sum, the weighted bucket fold) against naive_msm, default_cached_msm
-and msm_stream_unbaked; one segmented-scan level (kernel 9's plain
-version) against _scan_level word for word; and the variable-base msm()
-against naive_msm and msm_variable.  MSM results compare as affine points
-(the projective form depends on the algorithm); the signed digits and the
-scan levels compare word for word.  The plain versions of kernels D, 8 and
-9 run on both sides of `cuda_ops.on_ints` (python ints for small CPU
-batches, int64 limbs otherwise)."""
+"""The port's fixed-base MSMs against the JAX reference, with adversarial
+scalars: the stream MSM (kernel D's and kernel 8's plain versions, the
+lane tree sum, the weighted bucket fold) against naive_msm,
+default_cached_msm and msm_stream_unbaked, and the signed digits word for
+word.  MSM results compare as affine points (the projective form depends
+on the algorithm).  The plain versions of kernels D and 8 run on both
+sides of `cuda_ops.on_ints` (python ints for small CPU batches, int64
+limbs otherwise).  The variable-base MSM and kernel 9 are in
+test_torch_msm_variable.py."""
 
 import numpy as np
 import pytest
@@ -16,7 +15,6 @@ import torch
 from halo2_tpu.curves import BN254_G1 as REF
 from halo2_tpu.fields import PASTA_FP as REF_PASTA_FP
 from halo2_tpu.msm.host_msm import host_msm
-from halo2_tpu.msm import bucket_scan as ref_scan
 from halo2_tpu.msm.bucket_scan import _signed_digits as ref_signed_digits
 from halo2_tpu.msm.msm import default_cached_msm, naive_msm as ref_naive
 from halo2_tpu.msm.stream_msm import (
@@ -26,11 +24,8 @@ from halo2_tpu_torch.compat.from_jax import limbs_from_jax
 from halo2_tpu_torch.curves import BN254_G1 as C
 from halo2_tpu_torch.engine import GpuMsmEngine
 from halo2_tpu_torch.fields import PASTA_FP, cuda_ops
-from halo2_tpu_torch.msm import StreamMSM, msm, naive_msm
-from halo2_tpu_torch.msm.bucket_scan import (AFFINE, PACKED, PROJECTIVE,
-                                             SENTINEL_KEY, _signed_digits,
-                                             n_windows_for, pack_affine_rows,
-                                             scan_level, scan_level_plain)
+from halo2_tpu_torch.msm import StreamMSM
+from halo2_tpu_torch.msm.bucket_scan import _signed_digits, n_windows_for
 from halo2_tpu_torch.msm import stream_msm
 from halo2_tpu_torch.msm.stream_msm import (N_BUCKETS, STREAM_C, lanes_for,
                                             msm_stream_unbaked,
@@ -198,21 +193,8 @@ def test_unbaked_table_above_max_baked_rows(bases, monkeypatch):
         == [host_msm(REF, vals[:16], C.to_affine_ints(pts[:16]))]
 
 
-def test_small_variable_base_msm(bases):
-    _, pts = bases
-    vals = _scalars(20, 10, "random")
-    s = C.Fr.encode_ints(vals, "cpu")
-    want = [host_msm(REF, vals, C.to_affine_ints(pts[:20]))]
-    assert C.to_affine_ints(msm(C, s, pts[:20])[None]) == want
-    assert C.to_affine_ints(naive_msm(C, s, pts[:20])[None]) == want
-    vals = _scalars(40, 11, "random")
-    assert C.to_affine_ints(msm(C, C.Fr.encode_ints(vals, "cpu"),
-                                pts[:40])[None]) == \
-        [host_msm(REF, vals, C.to_affine_ints(pts[:40]))]
-
-
 # ----------------------------------------------------------------------
-# kernel 8 (unbaked stream) and kernel 9 (segmented scan), plain versions
+# kernel 8 (unbaked stream), plain version
 # ----------------------------------------------------------------------
 
 def test_msm_stream_unbaked_matches_reference(bases, monkeypatch):
@@ -241,87 +223,3 @@ def test_msm_stream_unbaked_matches_reference(bases, monkeypatch):
             rows = keys[w * table.shape[0]:(w + 1) * table.shape[0]]
             assert torch.equal(out[w], stream_bucket_plain(C, rows, table)), \
                 path
-
-
-def _sorted_stream(kind: str, m: int, seed: int):
-    """Sorted (keys, affine points or None) with the last lanes padded by
-    SENTINEL_KEY identity elements."""
-    rng = np.random.default_rng(seed)
-    if kind == "one-bucket":
-        keys = np.full(m, 5, np.int64)
-    else:
-        keys = np.sort(rng.integers(0, 12, size=m))
-    keys[-16:] = SENTINEL_KEY
-    ks = [int(k) for k in rng.integers(1, 1 << 40, size=m)]
-    pts = [host_msm(REF, [k], [(1, 2)]) for k in ks]
-    for i in list(range(3, m, 11)) + list(range(m - 16, m)):
-        pts[i] = None
-    return keys, pts
-
-
-@pytest.mark.parametrize("mode", ["packed", "affine", "projective"])
-@pytest.mark.parametrize("kind", ["one-bucket", "random"])
-def test_scan_level_matches_reference(mode, kind, monkeypatch):
-    """One segmented-scan level, word for word, on both plain paths: affine
-    rows with packed signed keys (y negated on odd keys), plain affine rows,
-    and projective points; one bucket owning every element, identity
-    points, sentinel padding."""
-    block, m = 8, 128
-    keys, aff = _sorted_stream(kind, m, 21 if kind == "random" else 22)
-    if mode == "packed":
-        signs = np.random.default_rng(23).integers(0, 2, size=m)
-        keys = np.where(keys == SENTINEL_KEY, keys, keys * 2 + signs)
-    inf = np.array([p is None for p in aff])
-    ref_keys = ref_scan.jnp.asarray(keys.astype(np.int32))
-    ours_keys = torch.from_numpy(keys.astype(np.int32))
-    ref_proj = REF.from_affine_ints(aff)
-    ours_proj = C.from_affine_ints(aff, "cpu")
-    if mode == "projective":
-        ref_out = ref_scan._scan_level(REF, ref_keys, ref_proj,
-                                       ref_scan.jnp.asarray(inf), block,
-                                       False)
-        data, flag = ours_proj, PROJECTIVE
-    else:
-        ref_xy = REF.batch_normalize(ref_proj)[:, :2, :].reshape(m, -1)
-        ref_out = ref_scan._scan_level(REF, ref_keys, ref_xy,
-                                       ref_scan.jnp.asarray(inf), block,
-                                       True, mode == "packed")
-        data = pack_affine_rows(C.batch_normalize(ours_proj),
-                                torch.from_numpy(inf))
-        flag = PACKED if mode == "packed" else AFFINE
-    want = limbs_from_jax(np.asarray(ref_out[0]))
-    for path in plain_paths(monkeypatch):
-        ours_out = scan_level_plain(C, ours_keys, data, block, flag)
-        assert torch.equal(ours_out[0], want), path
-        assert torch.equal(ours_out[0], scan_level(C, ours_keys, data, block,
-                                                   flag)[0]), path
-        assert torch.equal(ours_out[1], torch.from_numpy(
-            np.asarray(ref_out[1]).astype(np.int32))), path
-
-
-@pytest.mark.parametrize("n", [33, 1 << 8, 1 << 10])
-def test_variable_base_msm_matches_reference(bases, n):
-    """msm() above 32 points (Pippenger on the segmented scan, c = 4 below
-    2^12 points) against naive_msm and the reference's msm_variable, with
-    one scalar set mixing zeros, p - 1 and repeats."""
-    ref_pts, pts = bases
-    vals = _scalars(n, 30 + n, "random")
-    vals[:6] = [0, 0, P_ORDER - 1, 1, vals[7], vals[7]]
-    s = C.Fr.encode_ints(vals, "cpu")
-    got = C.to_affine_ints(msm(C, s, pts[:n])[None])
-    assert got == C.to_affine_ints(naive_msm(C, s, pts[:n])[None])
-    theirs = ref_scan.msm_variable(REF, REF.Fr.encode_ints(vals),
-                                   ref_pts[:n], 4, 64)
-    assert got == REF.to_affine_ints(theirs[None])
-
-
-def test_variable_base_msm_vesta():
-    """msm() over Vesta, whose 255-bit scalars give 65 windows at c = 4."""
-    from halo2_tpu_torch.curves import VESTA
-    vals = [v % VESTA.Fr.p for v in _scalars(40, 15, "random")]
-    vals[:3] = [VESTA.Fr.p - 1, 0, 1]
-    pts = VESTA.generator_mul(VESTA.Fr.encode_ints(
-        [3 + 7 * i for i in range(40)], "cpu"))
-    s = VESTA.Fr.encode_ints(vals, "cpu")
-    assert VESTA.to_affine_ints(msm(VESTA, s, pts)[None]) == \
-        [host_msm(VESTA, vals, VESTA.to_affine_ints(pts))]

@@ -10,21 +10,27 @@ plonk_api at k=8 and IPA/Vesta plonk_api at k=6.  Then it drives five
 main paths, each with the launch counts set to 0 just before it and read
 just after:
 
-  k=18 plonk_api, KZG / SHPLONK  (kernels A, B, C, D)
-  k=20 lookup_heavy, KZG / SHPLONK, on the unbaked stream table (kernel 8)
+  k=18 plonk_api, KZG / SHPLONK  (kernels A, B, C, D, the ordering pass)
+  k=20 lookup_heavy, KZG / SHPLONK, on the unbaked table (kernel 8)
   k=14 plonk_api, IPA / Vesta, opening MSMs on the segmented scan (kernel 9)
   bench micro k=18: the port bench's micro stage (MSM, NTT, kernel 10)
   probes: the ALU, gather and transpose probes (kernels 10-15)
 
 the first three each with params, keygen, a first and steady proves with
 their step tables, verify, and a tampered proof that must be rejected, then
-one profiled prove (device busy and idle share).  Kernel D is held against
-its plain version at the k=18 table shape, kernel 8 at the k=20 one, and on
-the IPA path every kernel D and kernel 9 call of one more prove is
-recorded and held against its plain version on its own inputs.  At k=20
-one MSM through the unbaked table must equal, as a group element, the same
-MSM through a baked table built for the check.  Kernels 10-15 are held
-against their plain versions at the bench's and the probes' shapes, and
+one profiled prove (device busy and idle share).  The ordering pass and
+kernel D are held against their plain versions at the k=18 table, the
+ordering pass and kernel 8 at the k=20 one, for random, 16-bit, zero,
+equal and one-bucket scalars; both are timed on random scalars and on the
+scalars of a real commitment of one more prove, whose nonzero shares are
+printed with each path's counts of elements streamed and added; the
+build's registers, spills, occupancy and SASS multiplies by kind are
+printed first.  On the IPA path every kernel D and kernel 9 call of one
+more prove is recorded and held against its plain version on its own
+inputs.  At k=20 one MSM through the unbaked table must equal, as a group
+element, the same MSM through a baked table built for the check.  Kernels
+10-15 are held against their plain versions at the bench's and the
+probes' shapes, and
 timed beside the PyTorch call that computes the same function where there
 is one (gather: `index_select`, transposes: `.t().contiguous()`); the
 measured IMAD rates (kernels 10 and 12) are printed beside the guide's,
@@ -106,6 +112,7 @@ def main() -> int:
         _build.library()
         log(f"[build] nvcc {'%.2f s' % _build.build_seconds if _build.build_seconds else 'reused'}")
         bound = card.Bounds(card.sass_multiplies(), clock_mhz)
+        log_stream_build(torch)
 
     results = {}
     with phase("kernels A-D, BN254", walls):
@@ -121,17 +128,17 @@ def main() -> int:
 
     counts = {}
     with phase(f"KZG plonk_api k={K_MAIN}", walls):
-        params = run_kzg_plonk_api(torch, dev, counts)
-    with phase(f"kernel D at k={K_MAIN}", walls):
-        results["h2_stream_bucket"].update(check_msm_main(torch, params,
-                                                          bound))
-    del params
+        path = run_kzg_plonk_api(torch, dev, counts)
+    with phase(f"ordering pass and kernel D at k={K_MAIN}", walls):
+        check_stream_main(torch, *path, bound, results)
+    del path
     with phase(f"KZG lookup_heavy k={K_LOOKUP}", walls):
-        params = run_lookup_heavy(torch, dev, counts)
-    with phase(f"kernel 8 at k={K_LOOKUP}, unbaked == baked", walls):
-        results["h2_stream_bucket_windows"].update(
-            check_unbaked_main(torch, params, bound))
-    del params
+        path = run_lookup_heavy(torch, dev, counts)
+    with phase(f"ordering pass and kernel 8 at k={K_LOOKUP}, unbaked == "
+               f"baked", walls):
+        check_stream_main(torch, *path, bound, results)
+        check_unbaked_vs_baked(torch, path[0])
+    del path
     with phase(f"IPA plonk_api k={K_IPA}", walls):
         params, pk, circuit, inst = run_ipa(torch, dev, counts)
     with phase(f"kernels D and 9 at the k={K_IPA} prove's calls", walls):
@@ -173,6 +180,8 @@ def max_err(torch, a, b) -> int:
     """Largest word difference (0 means bit-identical)."""
     if a.shape != b.shape:
         raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
@@ -199,10 +208,11 @@ def random_elems(torch, F, n: int, seed: int, dev):
 
 def _entry(name, source, line, err, root=REFERENCE, **kw):
     """A kernel's entry; `line` is file:line of the TPU kernel in the JAX
-    package (root None: in the repo's bench.py or tools/)."""
+    package (root None: in the repo's bench.py or tools/; line None: the
+    kernel replaces none of its own)."""
     return dict(name=name, route="cuda", source=f"halo2_tpu_torch/csrc/{source}",
-                replaces=f"{root}/{line}" if root else line, max_abs_err=err,
-                **kw)
+                replaces=f"{root}/{line}" if root and line else line,
+                max_abs_err=err, **kw)
 
 
 def check_field(torch, dev, F, n: int, seed: int, bound, tag: str):
@@ -314,48 +324,110 @@ def check_ntt(torch, dev, F, log_ns, seed: int, bound, tag: str):
     return err, ms, plain, b_
 
 
+STREAM_CASES = ("random", "16-bit", "zeros", "all-equal", "one-bucket")
+
+
+def stream_scalars(torch, Fr, n: int, seed: int, dev, kind: str):
+    """n scalars of one kind: random; below 2^16 (three nonzero windows);
+    zeros; all equal; all 1 (one bucket of window 0 holds every element);
+    p - 1; sparse (0, 1 or 2)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return random_elems(torch, Fr, n, seed, dev)
+    if kind == "16-bit":
+        return Fr.encode_ints([int(v) for v in rng.integers(
+            0, 1 << 16, size=n)], dev)
+    if kind == "zeros":
+        return Fr.zeros((n,), dev)
+    if kind == "all-equal":
+        return random_elems(torch, Fr, 8, seed, dev)[3:4].expand(
+            n, 8).contiguous()
+    if kind == "one-bucket":
+        return Fr.encode_ints([1] * n, dev)
+    if kind == "p-1":
+        return Fr.encode_ints([Fr.p - 1] * n, dev)
+    return Fr.encode_ints([int(v) for v in rng.integers(0, 3, size=n)], dev)
+
+
+def stream_split(G, keys, per_window: bool):
+    """(nkeys, pieces, slots) of a stream pass over keys."""
+    from halo2_tpu_torch.msm import stream_msm as sm
+    nkeys = sm.n_keys(keys, per_window)
+    pieces = sm.pieces_for(G, keys.numel(), nkeys, keys.device)
+    return nkeys, pieces, sm.slots_for(pieces, nkeys)
+
+
+def accumulate(G, order, table, info, per_window, nkeys, slots):
+    """Kernel 8 (per_window) or kernel D."""
+    from halo2_tpu_torch.msm import stream_msm as sm
+    if per_window:
+        return sm.stream_bucket_windows(G, order, table, info, nkeys, slots)
+    return sm.stream_bucket(G, order, table, info, slots)
+
+
+def check_order(torch, keys, per_window: bool, pieces: int, order, info,
+                what: str):
+    """The ordering pass's (order, info) on keys against its plain version
+    (the order up to T): returns (error, the plain version's time in ms)."""
+    from halo2_tpu_torch.msm import stream_msm as sm
+    from halo2_tpu_torch.tools import card
+    (p_order, p_info), ms = card.timed(
+        lambda: sm.msm_order_plain(keys, per_window, pieces))
+    total = int(info[0])
+    return max(expect_equal(torch, f"{what}: ordering pass info", info,
+                            p_info),
+               expect_equal(torch, f"{what}: ordered list", order[:total],
+                            p_order[:total])), ms
+
+
+def check_pass(torch, G, keys, table, per_window: bool, what: str):
+    """The ordering pass and kernel D or 8 on keys against their plain
+    versions (the accumulate pass on the kernel's order): returns (ordering
+    error, accumulate error, T, the two plain versions' times in ms)."""
+    from halo2_tpu_torch.msm import stream_msm as sm
+    from halo2_tpu_torch.tools import card
+    nkeys, pieces, slots = stream_split(G, keys, per_window)
+    order, info = sm.msm_order(keys, per_window, pieces)
+    err_o, order_plain = check_order(torch, keys, per_window, pieces, order,
+                                     info, what)
+    total = int(info[0])
+    got = accumulate(G, order, table, info, per_window, nkeys, slots)
+    want, acc_plain = card.timed(lambda: sm.accumulate_plain(
+        G, order, table, info, nkeys, slots))
+    err_a = expect_equal(torch, f"{what}: partial sums", got, want)
+    return err_o, err_a, total, order_plain, acc_plain
+
+
 def check_stream(torch, dev, G, n: int, seed: int):
-    """Kernels D and 8 at n bases against their plain versions on random
-    and adversarial scalar sets; both MSMs equal naive_msm."""
+    """The ordering pass and kernels D and 8 at n bases against their
+    plain versions on random and adversarial scalar sets; both MSMs equal
+    naive_msm.  Returns (ordering error, D error, 8 error)."""
     from halo2_tpu_torch.msm import naive_msm
     from halo2_tpu_torch.msm import stream_msm as sm
     Fr = G.Fr
     bases = G.generator_mul(random_elems(torch, Fr, n, seed, dev))
     bases[5] = G.identity((), dev)
     desc = sm.StreamMSM(G, bases)
-    lanes = sm.unbaked_lanes(n, 43)
-    unbaked = sm.pack_base_stream_table(G, bases, lanes)
-    rng = np.random.default_rng(seed + 1)
-    cases = {
-        "random": random_elems(torch, Fr, n, seed + 2, dev),
-        "zeros": Fr.zeros((n,), dev),
-        "all-equal": random_elems(torch, Fr, 8, seed + 3, dev)[3:4].expand(
-            n, 8).contiguous(),
-        "p-1": Fr.encode_ints([Fr.p - 1] * n, dev),
-        "sparse": Fr.encode_ints([int(v) for v in rng.integers(
-            0, 3, size=n)], dev),
-    }
-    err_d = err_8 = 0
-    for case, s in cases.items():
-        keys = sm.stream_keys(G, s, desc.lanes)
-        err_d = max(err_d, expect_equal(
-            torch, f"stream buckets {G.name} ({case})",
-            sm.stream_bucket(G, keys, desc.table),
-            sm.stream_bucket_plain(G, keys, desc.table)))
-        wkeys = sm.window_keys(G, s, unbaked.shape[0], lanes)
-        err_8 = max(err_8, expect_equal(
-            torch, f"window buckets {G.name} ({case})",
-            sm.stream_bucket_windows(G, wkeys, unbaked),
-            sm.stream_bucket_windows_plain(G, wkeys, unbaked)))
+    unbaked = sm.pack_base_stream_table(G, bases)
+    cases = STREAM_CASES + ("p-1", "sparse")
+    err = [0, 0, 0]
+    for case in cases:
+        s = stream_scalars(torch, Fr, n, seed + 2, dev, case)
+        keys = sm.stream_keys(G, s)
+        for per_window, table in ((False, desc.table), (True, unbaked)):
+            eo, ea = check_pass(torch, G, keys, table, per_window,
+                                f"{G.name} {case} per_window={per_window}")[:2]
+            err[0] = max(err[0], eo)
+            err[2 if per_window else 1] = max(err[2 if per_window else 1], ea)
         want = G.to_affine_ints(naive_msm(G, s, bases)[None])
         if G.to_affine_ints(desc(s)[None]) != want:
             raise AssertionError(f"baked MSM {G.name} ({case}) != naive")
-        if G.to_affine_ints(sm.msm_stream_unbaked(G, s, unbaked)[None]) != \
-                want:
+        if G.to_affine_ints(sm.msm_stream_unbaked(G, s, unbaked)[None]) \
+                != want:
             raise AssertionError(f"unbaked MSM {G.name} ({case}) != naive")
-    log(f"[kernels D, 8] {G.name} at n=2^{n.bit_length() - 1}: buckets equal "
-        f"to plain, MSMs == naive_msm for {', '.join(cases)}")
-    return err_d, err_8
+    log(f"[ordering pass, kernels D, 8] {G.name} at n=2^{n.bit_length() - 1}"
+        f": equal to plain, MSMs == naive_msm for {', '.join(cases)}")
+    return err
 
 
 def check_kernels(torch, dev, bound) -> dict:
@@ -377,7 +449,9 @@ def check_kernels(torch, dev, bound) -> dict:
                                    bound, "Bn254Fr")
     results["h2_ntt_base"] = _entry("ntt_base", "ntt.cu", "ntt/fused.py:119",
                                     err, ms=ms, plain_ms=plain, **b_)
-    err_d, err_8 = check_stream(torch, dev, G1, 1 << 12, 12)
+    err_o, err_d, err_8 = check_stream(torch, dev, G1, 1 << 12, 12)
+    results["h2_msm_order"] = _entry("msm_order", "msm.cu", None, err_o,
+                                     part_of="rows 7-8 (kernels D and 8)")
     results["h2_stream_bucket"] = _entry(
         "stream_bucket", "msm.cu", "msm/stream_msm.py:198", err_d)
     results["h2_stream_bucket_windows"] = _entry(
@@ -410,9 +484,9 @@ def check_pasta(torch, dev, bound, results: dict):
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r.setdefault("instances", {})[G.name] = dict(ms=ms, plain_ms=plain,
                                                          **b_)
-        err_d, err_8 = check_stream(torch, dev, G, 1 << 12, seed)
-        for name, err in (("h2_stream_bucket", err_d),
-                          ("h2_stream_bucket_windows", err_8)):
+        errs = check_stream(torch, dev, G, 1 << 12, seed)
+        for name, err in zip(("h2_msm_order", "h2_stream_bucket",
+                              "h2_stream_bucket_windows"), errs):
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                                err)
 
@@ -555,15 +629,21 @@ def run_path(torch, tag, counts, need, body):
     """Run one main path with the launch counts set to 0 just before and
     read just after; every kernel in `need` must have launched."""
     from halo2_tpu_torch import _build
+    from halo2_tpu_torch.msm import stream_msm as sm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
+    sm.reset_stream_counters()
     out = body()
     torch.cuda.synchronize()
     c = _build.launch_counts()
     counts[tag] = c
     peak = torch.cuda.max_memory_allocated()
     log(f"[{tag}] peak device memory {peak / 2**30:.2f} GiB; launches {c}")
+    sc = sm.stream_counters()
+    log(f"[{tag}] fixed-base MSM elements: streamed {sc['streamed']}, added "
+        f"{sc['added']} (nonzero share "
+        f"{sc['added'] / max(1, sc['streamed']):.4f})")
     idle = [k for k in need if c.get(k, 0) <= 0]
     if idle:
         raise AssertionError(f"{tag}: kernels not launched: {idle}")
@@ -602,9 +682,9 @@ def run_kzg_plonk_api(torch, dev, counts):
 
     params, pk = run_path(torch, tag, counts, (
         "h2_field_binop", "h2_ec_add", "h2_ec_madd", "h2_ec_double",
-        "h2_ntt_base", "h2_stream_bucket"), body)
+        "h2_ntt_base", "h2_msm_order", "h2_stream_bucket"), body)
     profile_prove(torch, tag, params, pk, circuit, inst)
-    return params
+    return params, pk, circuit, inst
 
 
 def run_lookup_heavy(torch, dev, counts):
@@ -630,11 +710,12 @@ def run_lookup_heavy(torch, dev, counts):
             f"{len(pk.vk.cs.cs.lookups)} lookups")
         prove_verify(torch, tag, params, pk, circuit, inst, N_STEADY_BIG,
                      *_kzg_kw())
-        return params
+        return params, pk
 
-    return run_path(torch, tag, counts, (
+    params, pk = run_path(torch, tag, counts, (
         "h2_field_binop", "h2_ec_add", "h2_ec_madd", "h2_ec_double",
-        "h2_ntt_base", "h2_stream_bucket_windows"), body)
+        "h2_ntt_base", "h2_msm_order", "h2_stream_bucket_windows"), body)
+    return params, pk, circuit, inst
 
 
 def run_ipa(torch, dev, counts):
@@ -662,7 +743,7 @@ def run_ipa(torch, dev, counts):
 
     params, pk = run_path(torch, tag, counts, (
         "h2_field_binop", "h2_ec_add", "h2_ec_double", "h2_ntt_base",
-        "h2_stream_bucket", "h2_scan_level"), body)
+        "h2_msm_order", "h2_stream_bucket", "h2_scan_level"), body)
     profile_prove(torch, tag, params, pk, circuit, inst, {})
     return params, pk, circuit, inst
 
@@ -699,7 +780,8 @@ def profile_prove(torch, tag, params, pk, circuit, inst, prove_kw=None):
         busy_us += end - start
     if busy_us <= 0:
         raise AssertionError("the profiled prove ran nothing on the device")
-    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    averages = prof.key_averages()
+    top = sorted(averages, key=lambda e: -e.self_device_time_total)
     kernels = "; ".join(f"{e.key.split('(')[0][:40]} "
                         f"{e.self_device_time_total / 1e3:.1f} ms x{e.count}"
                         for e in top[:6])
@@ -707,90 +789,213 @@ def profile_prove(torch, tag, params, pk, circuit, inst, prove_kw=None):
         f"{busy_us / 1e3:.1f} ms, idle share "
         f"{1 - busy_us / 1e3 / wall_ms:.3f}, {len(spans)} device kernels; "
         f"top device time: {kernels}")
+    named = []
+    for prefix in ("k_order_", "k_stream_bucket", "k_ec_add", "k_ec_double",
+                   "k_scan_level", "k_field_binop"):
+        hits = [e for e in averages if prefix in e.key]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        named.append(f"{prefix}* {ms:.1f} ms x{sum(e.count for e in hits)}")
+    log(f"[{tag}] profiled prove, device time by kernel: " + "; ".join(named))
 
 
 # ----------------------------------------------------------------------
 # kernels at the main paths' shapes
 # ----------------------------------------------------------------------
 
-def stream_bound(bound, G, tag, fn, windows, steps, lanes):
-    """A stream pass: keys and table read once, buckets written once; one
-    mixed add per (window, row)."""
-    from halo2_tpu_torch.msm.stream_msm import N_BUCKETS
-    return bound(4 * windows * steps * lanes + 72 * steps * lanes +
-                 96 * windows * lanes * N_BUCKETS,
-                 windows * steps * lanes * bound.per_elem(fn, tag))
-
-
-def check_msm_main(torch, params, bound) -> dict:
-    """Kernel D against its plain version at the k=18 shape: the baked
-    Lagrange-basis table of the main path, random scalars."""
-    from halo2_tpu_torch.msm.stream_msm import (stream_bucket,
-                                                stream_bucket_plain,
-                                                stream_keys)
-    from halo2_tpu_torch.tools import card
-    G = params.curve
-    desc = params.engine.msm_backend.get_base_descriptor(G, params.g_lagrange)
-    s = random_elems(torch, G.Fr, params.n, 21, params.device)
-    keys = stream_keys(G, s, desc.lanes)
-    want, plain = card.timed(lambda: stream_bucket_plain(G, keys,
-                                                           desc.table))
-    err = expect_equal(torch, f"stream buckets at k={params.k}",
-                       stream_bucket(G, keys, desc.table), want)
-    ms = card.cuda_ms(lambda: stream_bucket(G, keys, desc.table), 5)
-    msm_ms = card.cuda_ms(lambda: desc(s), 3)
-    steps, _, lanes = desc.table.shape
-    b_ = stream_bound(bound, G, "Bn254G1", "k_stream_bucketI", 1, steps, lanes)
-    log(f"[kernel D] stream buckets at k={params.k} "
-        f"({tuple(desc.table.shape)}): equal; {ms:.3f} ms vs plain "
-        f"{plain:.1f} ms; bound {b_['bound_ms']:.3f} ms ({b_['bound_by']}); "
-        f"whole MSM {msm_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, **b_)
-
-
-def check_unbaked_main(torch, params, bound) -> dict:
-    """Kernel 8 against its plain version at the k=20 table shape, and one
-    k=20 MSM through the unbaked table against the same MSM through a
-    baked table built for this check."""
+def log_stream_build(torch):
+    """The accumulate pass as built: registers, spills and resident blocks
+    per SM of kernels D and 8 and the ordering pass's kernels (ptxas -v,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the multiplies by
+    kind in the element loop of D and 8 and in kernels 10 and 12."""
     from halo2_tpu_torch.msm import stream_msm as sm
-    from halo2_tpu_torch.msm.bucket_scan import n_windows_for
+    from halo2_tpu_torch.tools import card
+    for fn, r in sorted(card.ptxas_report().items()):
+        if any(k in fn for k in ("k_stream_bucket", "k_order_",
+                                 "k_mont_repeatI7Bn254Fr", "k_u32")):
+            log(f"[ptxas] {fn}: {r}")
+    for curve, tag in ((0, "Bn254G1"), (1, "Pallas"), (2, "Vesta")):
+        for per_window in (False, True):
+            log(f"[occupancy] {'kernel 8' if per_window else 'kernel D'} "
+                f"{tag}: {sm.occupancy(curve, per_window)}")
+    for parts in (("k_stream_bucketI", "Bn254G1"),
+                  ("k_stream_bucket_windowsI", "Bn254G1"),
+                  ("k_stream_bucketI", "Vesta"),
+                  ("k_mont_repeat", "Bn254Fr"), ("k_u32_mul_repeat",)):
+        log(f"[sass] {' '.join(parts)}: busiest loop "
+            f"{card.loop_multiplies(parts)}")
+
+
+def stream_bound(bound, G, fn, keys, total: int, slots: int):
+    """Rows 7-8 (the ordering pass and the accumulate pass): the keys and
+    the nonzero elements' rows read once, the partial sums written once;
+    the multiplies of the element loop's body (SASS) per nonzero
+    element."""
+    from halo2_tpu_torch.tools import card
+    per = sum(card.loop_multiplies((fn, SASS_TAG[G.name])).values())
+    return bound(4 * keys.numel() + 72 * total + 96 * slots, per * total)
+
+
+def time_pass(torch, G, keys, table, per_window: bool) -> dict:
+    """CUDA-event times of one MSM's steps on keys: the ordering pass, the
+    accumulate pass (kernel D or 8), the per-key sums of its partial sums
+    (kernel B) and the whole `stream_buckets`; with the nonzero count."""
+    from halo2_tpu_torch.msm import stream_msm as sm
+    from halo2_tpu_torch.tools import card
+    nkeys, pieces, slots = stream_split(G, keys, per_window)
+    order, info = sm.msm_order(keys, per_window, pieces)
+    partials = accumulate(G, order, table, info, per_window, nkeys, slots)
+    return dict(
+        total=int(info[0]), pieces=int(info[2]), step=int(info[1]),
+        slots=slots,
+        order_ms=card.cuda_ms(lambda: sm.msm_order(keys, per_window, pieces),
+                              5),
+        acc_ms=card.cuda_ms(lambda: accumulate(G, order, table, info,
+                                               per_window, nkeys, slots), 3),
+        reduce_ms=card.cuda_ms(lambda: sm.key_sums(G, partials, info, nkeys),
+                               3),
+        buckets_ms=card.cuda_ms(lambda: sm.stream_buckets(
+            G, keys, table, per_window), 3))
+
+
+def check_stream_main(torch, params, pk, circuit, inst, bound, results):
+    """The ordering pass and kernel D (baked table, k=18) or 8 (unbaked,
+    k=20) against their plain versions at the main path's table, for
+    random, 16-bit, zero, equal and one-bucket scalars; timed on random
+    scalars and on the scalars of real commitments of one more prove,
+    whose nonzero shares are printed."""
+    from halo2_tpu_torch.api import create_proof
+    from halo2_tpu_torch.msm import stream_msm as sm
     from halo2_tpu_torch.tools import card
     G = params.curve
     desc = params.engine.msm_backend.get_base_descriptor(G, params.g_lagrange)
-    if desc.baked:
-        raise AssertionError(f"k={params.k}: the descriptor was baked")
-    table = desc.table
-    steps, _, lanes = table.shape
-    nw = n_windows_for(G.Fr, sm.STREAM_C)
+    per_window = not desc.baked
+    name = "h2_stream_bucket_windows" if per_window else "h2_stream_bucket"
+    kern = "kernel 8" if per_window else "kernel D"
+    tag = f"k={params.k}"
+    err_o = err_a = 0
+    for kind in STREAM_CASES:
+        s = stream_scalars(torch, G.Fr, params.n, 21, params.device, kind)
+        keys = sm.stream_keys(G, s)
+        eo, ea, total, order_p, acc_p = check_pass(
+            torch, G, keys, desc.table, per_window, f"{tag} {kind}")
+        if kind == "random":
+            order_plain, plain = order_p, acc_p
+        err_o, err_a = max(err_o, eo), max(err_a, ea)
+        log(f"[{kern}] {tag} {kind}: ordering pass and accumulate pass "
+            f"equal to plain ({total} nonzero of {keys.numel()})")
+    s = stream_scalars(torch, G.Fr, params.n, 21, params.device, "random")
+    keys = sm.stream_keys(G, s)
+    t = time_pass(torch, G, keys, desc.table, per_window)
+    msm_ms = card.cuda_ms(lambda: desc(s), 3)
+    fn = "k_stream_bucket_windowsI" if per_window else "k_stream_bucketI"
+    b_ = stream_bound(bound, G, fn, keys, t["total"], t["slots"])
+    b_o = bound(4 * keys.numel() + 4 * t["total"], 0)
+    key_ids = keys >> 1
+    b_o["library_ms"] = card.cuda_ms(
+        lambda: torch.sort(key_ids.reshape(-1), stable=True), 3)
+    log(f"[{kern}] {tag} random ({t['total']} nonzero, {t['pieces']} pieces "
+        f"of <= {t['step']}): ordering pass {t['order_ms']:.3f} ms (plain "
+        f"{order_plain:.1f} ms, torch.sort stable {b_o['library_ms']:.3f} "
+        f"ms, bound {b_o['bound_ms']:.4f} ms); accumulate {t['acc_ms']:.3f} "
+        f"ms (plain {plain:.1f} ms; bound {b_['bound_ms']:.3f} ms, "
+        f"{b_['bound_by']}); key sums (kernel B) {t['reduce_ms']:.3f} ms; "
+        f"bucket sums {t['buckets_ms']:.3f} ms; whole MSM {msm_ms:.3f} ms")
+
+    with msm_census(torch, keep=True) as calls:
+        create_proof(params, pk, [circuit], [inst], random.Random(7),
+                     **_kzg_kw()[0])
+    shares = log_census(tag, calls)
+    real = {}
+    for label, pick in (("sparsest", min), ("densest", max)):
+        j = pick((j for j in range(len(calls)) if shares[j] >= 0.01),
+                 key=lambda j: shares[j])
+        sc = calls[j]["scalars"]
+        sc = torch.cat([sc, sc.new_zeros((params.n - sc.shape[0], 8))])
+        rkeys = sm.stream_keys(G, sc)
+        rt = time_pass(torch, G, rkeys, desc.table, per_window)
+        real[label] = dict(share=shares[j], **rt)
+        log(f"[{kern}] {tag} real commitment {j} ({label}, nonzero share "
+            f"{shares[j]:.4f}): ordering pass {rt['order_ms']:.3f} ms, "
+            f"accumulate {rt['acc_ms']:.3f} ms, key sums "
+            f"{rt['reduce_ms']:.3f} ms, bucket sums {rt['buckets_ms']:.3f} ms")
+    r = results[name]
+    r.update(max_abs_err=max(r["max_abs_err"], err_a),
+             ms=t["order_ms"] + t["acc_ms"], accumulate_ms=t["acc_ms"],
+             order_ms=t["order_ms"], reduce_ms=t["reduce_ms"],
+             msm_ms=msm_ms, nonzero=t["total"], plain_ms=order_plain + plain,
+             real_commitments=real, **b_)
+    o = results["h2_msm_order"]
+    o["max_abs_err"] = max(o["max_abs_err"], err_o)
+    at = dict(ms=t["order_ms"], plain_ms=order_plain, **b_o)
+    if per_window:
+        o.setdefault("instances", {})[f"kernel 8's keys, {tag}"] = at
+    else:
+        o.update(at)
+
+
+def check_unbaked_vs_baked(torch, params):
+    """One k=20 MSM through the unbaked table against the same MSM through
+    a baked table built for this check."""
+    from halo2_tpu_torch.msm import stream_msm as sm
+    from halo2_tpu_torch.tools import card
+    G = params.curve
+    desc = params.engine.msm_backend.get_base_descriptor(G, params.g_lagrange)
     s = random_elems(torch, G.Fr, params.n, 22, params.device)
-    keys = sm.window_keys(G, s, steps, lanes)
-    want, plain = card.timed(lambda: sm.stream_bucket_windows_plain(
-        G, keys, table))
-    err = expect_equal(torch, f"window buckets at k={params.k}",
-                       sm.stream_bucket_windows(G, keys, table), want)
-    del want
-    ms = card.cuda_ms(lambda: sm.stream_bucket_windows(G, keys, table), 3)
-    b_ = stream_bound(bound, G, "Bn254G1", "k_stream_bucket_windowsI", nw,
-                      steps, lanes)
     unbaked_ms = card.cuda_ms(lambda: desc(s), 3)
     got = G.to_affine_ints(desc(s)[None])
     t0 = time.time()
-    baked_lanes = sm.lanes_for(nw * params.n)
-    baked = sm.bake_stream_table(G, params.g_lagrange, baked_lanes)
+    baked = sm.bake_stream_table(G, params.g_lagrange)
     torch.cuda.synchronize()
     t_bake = time.time() - t0
     baked_ms = card.cuda_ms(lambda: sm.msm_stream_baked(G, s, baked), 3)
     want = G.to_affine_ints(sm.msm_stream_baked(G, s, baked)[None])
-    log(f"[kernel 8] window buckets at k={params.k} ({nw} windows x "
-        f"{tuple(table.shape)}): equal; {ms:.3f} ms vs plain {plain:.1f} ms; "
-        f"bound {b_['bound_ms']:.3f} ms ({b_['bound_by']})")
     log(f"[unbaked vs baked] k={params.k} MSM: unbaked table "
-        f"{table.numel() * 4 / 2**20:.1f} MiB, whole MSM {unbaked_ms:.3f} ms; "
-        f"baked table {baked.numel() * 4 / 2**30:.2f} GiB built in "
-        f"{t_bake:.2f} s, whole MSM {baked_ms:.3f} ms; equal {got == want}")
+        f"{desc.table.numel() * 4 / 2**20:.1f} MiB, whole MSM "
+        f"{unbaked_ms:.3f} ms; baked table {baked.numel() * 4 / 2**30:.2f} "
+        f"GiB built in {t_bake:.2f} s, whole MSM {baked_ms:.3f} ms; equal "
+        f"{got == want}")
     if got != want:
         raise AssertionError("unbaked and baked k=20 MSMs differ")
-    return dict(max_abs_err=max(err, 0), ms=ms, plain_ms=plain, **b_)
+
+
+@contextlib.contextmanager
+def msm_census(torch, keep: bool = False):
+    """Record every StreamMSM call while the block runs: its table kind,
+    its scalars' count and the nonzero signed digits of each window (a
+    zero digit adds nothing); with keep, the scalars too."""
+    from halo2_tpu_torch.msm import stream_msm as sm
+    from halo2_tpu_torch.msm.bucket_scan import _signed_digits
+    calls = []
+    orig = sm.StreamMSM.__call__
+
+    def wrapper(self, s):
+        digits, _ = _signed_digits(self.curve.Fr, s, sm.STREAM_C)
+        nz = (digits != 0).sum(dim=1).cpu().tolist()
+        calls.append(dict(baked=self.baked, n=s.shape[0], nonzero=nz,
+                          scalars=s if keep else None))
+        return orig(self, s)
+
+    sm.StreamMSM.__call__ = wrapper
+    try:
+        yield calls
+    finally:
+        sm.StreamMSM.__call__ = orig
+
+
+def log_census(tag: str, calls):
+    """Each commitment's nonzero share of its (window, base) digits, and
+    its windows with at most 16 nonzero digits (blinding rows only)."""
+    shares = [sum(c["nonzero"]) / (len(c["nonzero"]) * c["n"]) for c in calls]
+    empty = [sum(v <= 16 for v in c["nonzero"]) for c in calls]
+    total = sum(sum(c["nonzero"]) for c in calls) / max(1, sum(
+        len(c["nonzero"]) * c["n"] for c in calls))
+    log(f"[census] {tag}: {len(calls)} fixed-base MSMs, nonzero share "
+        f"{total:.4f} over all; per MSM min {min(shares):.4f}, max "
+        f"{max(shares):.4f}; {sum(s < 0.5 for s in shares)} below 0.5")
+    log(f"[census] {tag}: per MSM (share, windows with <= 16 nonzero "
+        f"digits of {len(calls[0]['nonzero'])}): " + ", ".join(
+            f"{s:.3f}/{e}" for s, e in zip(shares, empty)))
+    return shares
 
 
 @contextlib.contextmanager
@@ -815,10 +1020,11 @@ def recording(module, name: str):
 
 
 def check_ipa_main(torch, params, pk, circuit, inst, bound, results):
-    """One more steady IPA prove with every kernel D and kernel 9 call and
-    every host blind-term MSM recorded.  The first recorded call of each
-    shape is then held against its plain version on its own inputs (the
-    main path's shapes: g_lagrange's and g's baked tables, and every scan
+    """One more steady IPA prove with every ordering pass, kernel D and
+    kernel 9 call and every host blind-term MSM recorded.  The first
+    recorded call of each shape is then held against its plain version on
+    its own inputs (the main path's shapes: the ordering pass and kernel D
+    on g_lagrange's and g's baked tables, and every scan
     level and tail scan of every opening MSM; a round's L and R MSMs repeat
     each other's shapes); kernel 9 is timed at its largest call;
     the host MSMs' share of the prove is printed, and one blind term on the
@@ -833,6 +1039,7 @@ def check_ipa_main(torch, params, pk, circuit, inst, bound, results):
     G = params.curve
     tag = f"IPA plonk_api k={params.k}"
     with recording(bs, "scan_level") as scans, \
+            recording(sm, "msm_order") as orders, \
             recording(sm, "stream_bucket") as streams, \
             recording(ipa, "host_msm") as hosts:
         torch.cuda.synchronize()
@@ -851,20 +1058,32 @@ def check_ipa_main(torch, params, pk, circuit, inst, bound, results):
             seen.setdefault(key(call[0]), call)
         return list(seen.values())
 
-    err_d = 0
-    tables = first_of_each(streams, lambda a: a[2].data_ptr())
-    for args, out, _ in tables:
+    # each MSM runs the ordering pass, then kernel D on its order
+    if len(orders) != len(streams) or any(
+            d[0][1] is not o[1][0] for o, d in zip(orders, streams)):
+        raise AssertionError(f"{tag}: ordering passes and kernel D calls "
+                             f"do not pair up")
+    err_o = err_d = 0
+    tables = {}
+    for o, d in zip(orders, streams):
+        tables.setdefault(d[0][2].data_ptr(), (o, d))
+    for ((keys, per_window, pieces), (order, info), _), \
+            ((G_, _, table, _, slots), out, _) in tables.values():
+        what = f"{tag} table {tuple(table.shape)}"
+        err_o = max(err_o, check_order(torch, keys, per_window, pieces,
+                                       order, info, what)[0])
+        want = sm.accumulate_plain(G_, order, table, info, sm.NB, slots)
         err_d = max(err_d, expect_equal(
-            torch, f"{tag} stream buckets {tuple(args[2].shape)}", out,
-            sm.stream_bucket_plain(*args)))
+            torch, f"{what}: stream buckets", out, want))
     shapes = sorted({tuple(a[2].shape) for a, _, _ in streams})
-    log(f"[kernel D] {tag}: the first of the prove's {len(streams)} calls "
-        f"on each of its {len(tables)} tables equal to plain (tables "
-        f"{shapes})")
-    r = results["h2_stream_bucket"]
-    r["max_abs_err"] = max(r["max_abs_err"], err_d)
-    r.setdefault("path_checks", {})[tag] = dict(calls=len(tables),
-                                                max_abs_err=err_d)
+    log(f"[ordering pass, kernel D] {tag}: the first of the prove's "
+        f"{len(streams)} calls on each of its {len(tables)} tables equal to "
+        f"plain (tables {shapes})")
+    for name, err in (("h2_msm_order", err_o), ("h2_stream_bucket", err_d)):
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.setdefault("path_checks", {})[tag] = dict(calls=len(tables),
+                                                    max_abs_err=err)
 
     err_9, plain_ms, big = 0, 0.0, None
     scans_1 = first_of_each(scans, lambda a: (a[1].shape[0], a[3], a[4]))
@@ -1067,11 +1286,17 @@ def check_probes(torch, dev, bound, results):
             err, root=None, ms=ms, plain_ms=plain, **b_)
 
 
+U32_RATE = ("u32_mul_repeat", "msm_order", "stream_bucket",
+            "stream_bucket_windows")
+
+
 def shares_at_measured_rates(results):
     """Each kernel's time against its bound at the guide's IMAD rate (the
     `bound_ms` of the kernels line) and against the same bound at the rate
-    the card reached in this run (`bound_ms_measured`): kernel 12's for
-    kernel 12, kernel 10's for every kernel made of Montgomery products."""
+    the card reached in this run (`bound_ms_measured`): kernel 10's for
+    every kernel made of its Montgomery product, kernel 12's u32 rate for
+    kernel 12, the ordering pass and kernels D and 8, whose carry-chain
+    product is not kernel 10's."""
     from halo2_tpu_torch.tools import card
     u32 = results["h2_u32_mul_repeat"]["imad_per_clk_sm"]
     mont = results["h2_mont_repeat"]["imad_per_clk_sm"]
@@ -1079,7 +1304,7 @@ def shares_at_measured_rates(results):
         f"(kernel 12) {u32:.1f}, Montgomery product (kernel 10) {mont:.1f}; "
         f"the guide's {card.IMAD_PER_CLK_SM}, which every bound_ms uses")
     for r in results.values():
-        rate = u32 if r["name"] == "u32_mul_repeat" else mont
+        rate = u32 if r["name"] in U32_RATE else mont
         for label, d in [("", r)] + list(r.get("instances", {}).items()):
             d["bound_ms_measured"] = max(
                 d["bytes_ms"], d["ops_ms"] * card.IMAD_PER_CLK_SM / rate)

@@ -2,15 +2,18 @@
 
 keygen -> create_proof -> verify run on PyTorch tensors, for KZG on BN254
 with the SHPLONK multiopen and for IPA over the Pasta curves (the API's
-default, as in the reference), with a Blake2b transcript.  Six
-hand-written Hopper kernels in `csrc/` carry the device work:
+default, as in the reference), with a Blake2b transcript.  Hand-written
+Hopper kernels in `csrc/` carry the device work:
 
   A  field.cu  field mul / add / sub         (fields/cuda_ops.py)
   B  ec.cu     complete add / madd / double  (curves/cuda_ec.py)
   C  ntt.cu    base Stockham NTT             (ntt/fused.py)
-  D  msm.cu    baked fixed-base buckets      (msm/stream_msm.py)
-  8  msm.cu    unbaked per-window buckets    (msm/stream_msm.py)
+     msm.cu    ordering pass: bucket keys    (msm/stream_msm.py)
+  D  msm.cu    baked fixed-base piece sums   (msm/stream_msm.py)
+  8  msm.cu    unbaked per-window piece sums (msm/stream_msm.py)
   9  scan.cu   segmented scan, variable base (msm/bucket_scan.py)
+
+and the probes' kernels 10-15 (alu.cu, move.cu; tools/).
 
 Each kernel has a plain PyTorch version beside it, taken for CPU tensors.
 The package imports no JAX and keeps its own copy of the host code it

@@ -31,9 +31,10 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("field.cu", "ec.cu", "ntt.cu", "msm.cu", "scan.cu", "alu.cu",
            "move.cu")
-HEADERS = ("arith.cuh",)
+HEADERS = ("arith.cuh", "mont_chain.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+PTXAS_FLAGS = ("-Xptxas", "-v")    # registers and spills, kept in <lib>.ptxas
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -54,40 +55,48 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
     for name in HEADERS + SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
 
-def _run(procs):
-    """Wait for every nvcc process; raise with the first failure's output."""
-    failed = None
+def _run(procs) -> str:
+    """Wait for every nvcc process; raise with the first failure's output.
+    Returns what they printed."""
+    failed, printed = None, []
     for cmd, proc in procs:
         out, err = proc.communicate()
+        printed.append(out + err)
         if proc.returncode != 0 and failed is None:
             failed = f"{' '.join(cmd)}\n{out}{err}"
     if failed is not None:
         raise RuntimeError("nvcc failed:\n" + failed)
+    return "".join(printed)
 
 
 def _compile(so: str):
-    """One nvcc per source, all at once, then one link into `so`."""
+    """One nvcc per source, all at once, then one link into `so`; ptxas's
+    report of every kernel goes to `so`.ptxas."""
     nvcc = _nvcc()
     tag = f"{so}.{os.getpid()}"
     objs, procs = [], []
     for src in SOURCES:
         obj = f"{tag}.{src}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, src)]
+        cmd = [nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", "-o", obj,
+               os.path.join(CSRC, src)]
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         objs.append(obj)
     try:
-        _run(procs)
+        report = _run(procs)
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tag}.tmp", *objs]
         _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True))])
+        with open(f"{tag}.tmp.ptxas", "w") as f:
+            f.write(report)
+        os.replace(f"{tag}.tmp.ptxas", so + ".ptxas")
         os.replace(f"{tag}.tmp", so)
     finally:
         for obj in objs:

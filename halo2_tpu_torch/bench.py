@@ -45,7 +45,7 @@ from .curves import BN254_G1
 from .fields import BN254_FR
 from .fields.cuda_ops import NWORDS
 from .msm import StreamMSM
-from .msm.bucket_scan import n_windows_for
+from .msm.bucket_scan import n_windows_for, point_prefix_sum
 from .msm.msm import auto_c
 from .msm.stream_msm import STREAM_C
 from .ntt import get_ntt
@@ -84,16 +84,9 @@ def _device_name(dev) -> str:
 
 def gen_points(curve, k: int, device):
     """pts[i] = (i+1) G for i < 2^k: a log-depth inclusive prefix sum of
-    point adds (kernel B); the complete formulas make the identity padding
-    exact."""
-    n = 1 << k
-    pts = curve.from_affine_ints([(curve.gen_x, curve.gen_y)],
-                                 device).expand(n, 3, NWORDS).contiguous()
-    for r in range(k):
-        d = 1 << r
-        pts = curve.add(pts, torch.cat([curve.identity((d,), device),
-                                        pts[:-d]]))
-    return pts
+    point adds (kernel B)."""
+    g = curve.from_affine_ints([(curve.gen_x, curve.gen_y)], device)
+    return point_prefix_sum(curve, g.expand(1 << k, 3, NWORDS).contiguous())
 
 
 def stage_micro(device="cuda", k: int = None, ntt_k: int = 18,

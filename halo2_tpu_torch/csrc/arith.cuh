@@ -3,7 +3,8 @@
 // Element format: 8 little-endian 32-bit words holding the Montgomery value
 // a * 2^256 mod p (the same R = 2^256 as the JAX reference), canonical < p.
 // Field ops are CIOS Montgomery multiplication over 8 x 32-bit limbs with
-// 64-bit products (IMAD.WIDE on Hopper), modular add and sub; the curve
+// 64-bit products (IMAD.WIDE on Hopper; the carry-chain form for kernels D
+// and 8 is in mont_chain.cuh), modular add and sub; the curve
 // bodies are the Renes-Costello-Batina complete formulas (eprint 2015/1060,
 // Algs 7-9, a = 0) in exactly the operation order of the JAX reference's
 // curves/pallas_ec.py, so a kernel and its plain PyTorch version produce
@@ -22,6 +23,8 @@
 struct Fe {
   uint32_t w[8];
 };
+
+#include "mont_chain.cuh"
 
 // Moduli as functions of a constant index: after unrolling, every word is an
 // immediate operand.  p: the modulus; inv: -p^-1 mod 2^32; one: R mod p.
@@ -248,6 +251,22 @@ struct Pt {
   Fe x, y, z;
 };
 
+// The Montgomery product a curve body uses: arith.cuh's C form (kernels B,
+// 9 and the rest) or mont_chain.cuh's carry chains (kernels D and 8).  Both
+// return the same canonical words.
+struct MulCios {
+  template <class M>
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
+    return fe_mul<M>(a, b);
+  }
+};
+struct MulChain {
+  template <class M>
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
+    return fe_mul_chain<M>(a, b);
+  }
+};
+
 // x * 3b by the reference's addition chains: 9x = 8x + x (BN254),
 // 15x = 16x - x (Pasta).
 template <class C>
@@ -298,26 +317,29 @@ __device__ __forceinline__ Pt ec_add_body(const Pt& P, const Pt& R) {
 }
 
 // Complete mixed addition, RC15 Alg 8 (pallas_ec._madd_body_ec): P plus the
-// affine (x2, y2); lanes with q_inf pass P through.
-template <class C>
+// affine (x2, y2); lanes with q_inf pass P through.  Mul: the product.
+template <class C, class Mul = MulCios>
 __device__ __forceinline__ Pt ec_madd_body(const Pt& P, const Fe& x2,
                                            const Fe& y2, bool q_inf) {
   typedef typename C::Q Q;
-  Fe t0 = fe_mul<Q>(P.x, x2);
-  Fe t1 = fe_mul<Q>(P.y, y2);
-  Fe t3 = fe_mul<Q>(fe_add<Q>(x2, y2), fe_add<Q>(P.x, P.y));
+  Fe t0 = Mul::template mul<Q>(P.x, x2);
+  Fe t1 = Mul::template mul<Q>(P.y, y2);
+  Fe t3 = Mul::template mul<Q>(fe_add<Q>(x2, y2), fe_add<Q>(P.x, P.y));
   t3 = fe_sub<Q>(t3, fe_add<Q>(t0, t1));
-  Fe t4 = fe_add<Q>(fe_mul<Q>(y2, P.z), P.y);
-  Fe y3 = fe_add<Q>(fe_mul<Q>(x2, P.z), P.x);
+  Fe t4 = fe_add<Q>(Mul::template mul<Q>(y2, P.z), P.y);
+  Fe y3 = fe_add<Q>(Mul::template mul<Q>(x2, P.z), P.x);
   t0 = fe_add<Q>(fe_add<Q>(t0, t0), t0);
   Fe t2 = mul_b3<C>(P.z);
   Fe z3 = fe_add<Q>(t1, t2);
   t1 = fe_sub<Q>(t1, t2);
   y3 = mul_b3<C>(y3);
   Pt out;
-  out.x = fe_sub<Q>(fe_mul<Q>(t3, t1), fe_mul<Q>(t4, y3));
-  out.y = fe_add<Q>(fe_mul<Q>(y3, t0), fe_mul<Q>(t1, z3));
-  out.z = fe_add<Q>(fe_mul<Q>(z3, t4), fe_mul<Q>(t0, t3));
+  out.x = fe_sub<Q>(Mul::template mul<Q>(t3, t1),
+                    Mul::template mul<Q>(t4, y3));
+  out.y = fe_add<Q>(Mul::template mul<Q>(y3, t0),
+                    Mul::template mul<Q>(t1, z3));
+  out.z = fe_add<Q>(Mul::template mul<Q>(z3, t4),
+                    Mul::template mul<Q>(t0, t3));
   return q_inf ? P : out;
 }
 
@@ -363,8 +385,8 @@ __device__ __forceinline__ void pt_store(uint4* base, long long i, const Pt& v) 
   fe_store(base, 3 * i + 2, v.z);
 }
 
-// Affine point from an 18-word stream row (x words, y words, infinity flag,
-// pad) at column `lane` of a (rows, 18, lanes) table; y negated when neg.
+// Affine point from an 18-word row (x words, y words, infinity flag, pad)
+// whose words lie `stride` apart (1: a row-major row); y negated when neg.
 template <class C>
 __device__ __forceinline__ void row_load(const uint32_t* row, long long stride,
                                          bool neg, Fe& x, Fe& y, bool& inf) {

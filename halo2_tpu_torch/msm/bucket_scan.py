@@ -89,6 +89,16 @@ def point_tree_sum(curve: Curve, pts, dim: int = 0):
     return pts[0]
 
 
+def point_prefix_sum(curve: Curve, pts):
+    """Inclusive prefix sums along dim 0 (Hillis-Steele: log2 levels of
+    kernel B over contiguous slices)."""
+    d = 1
+    while d < pts.shape[0]:
+        pts = torch.cat([pts[:d], curve.add(pts[d:], pts[:-d])])
+        d *= 2
+    return pts
+
+
 def weighted_bucket_fold(curve: Curve, buckets):
     """sum_{j >= 1} j B_j for buckets (nb, ..., 3, 8), batched over the
     middle dims.  Small spaces: two suffix sums (W(x) = suffix(suffix(x))[0]

@@ -9,6 +9,12 @@ card's maximum SM clock.  The
 IMAD rate is the CUDA C++ Programming Guide's for compute capability 9.0;
 the probes (`alu_probe.py`) measure the card's own beside it, and the
 bounds keep the guide's.
+
+The SASS census counts the multiplier's instructions by kind (IMAD,
+IMAD.WIDE, IMAD.HI, IMAD.X) for each function and for each loop in it, so
+that a kernel whose element loop sits beside set-up loops is counted per
+element by that loop alone; `ptxas_report` reads the registers and spills
+that the build's `ptxas -v` printed.
 """
 
 from __future__ import annotations
@@ -80,27 +86,117 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def imad_kind(opcode: str):
+    """The multiply kind of a SASS opcode: IMAD, IMAD.WIDE, IMAD.HI or
+    IMAD.X (with carry in), or None for what is not an integer multiply
+    (the IMAD.MOV / IMAD.IADD / IMAD.SHL moves and every other opcode)."""
+    if not opcode.startswith("IMAD") or re.search(r"\.(MOV|IADD|SHL)",
+                                                  opcode):
+        return None
+    for kind in ("WIDE", "HI", "X"):
+        if f".{kind}" in opcode:
+            return f"IMAD.{kind}"
+    return "IMAD"
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9_.]*)(.*)")
+_BRANCH = re.compile(r"\s*(0x[0-9a-f]+)")
+
+
+def parse_sass(text: str) -> dict:
+    """cuobjdump -sass text -> {function: {"kinds": {kind: n}, "loops":
+    [{"start", "end", "kinds"}]}}.  A loop is a branch to an earlier
+    address; its body is every instruction from the target to the branch,
+    so an outer loop's counts include its inner loops'."""
+    funcs, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            funcs[fn] = []
+            continue
+        m = _SASS_LINE.search(line)
+        if fn is not None and m:
+            funcs[fn].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for fn, ins in funcs.items():
+        def kinds(lo, hi):
+            c = {}
+            for addr, op, _ in ins:
+                k = imad_kind(op)
+                if k and lo <= addr <= hi:
+                    c[k] = c.get(k, 0) + 1
+            return c
+        loops = []
+        for addr, op, rest in ins:
+            b = _BRANCH.match(rest) if op.startswith("BRA") else None
+            if b and int(b.group(1), 16) < addr:
+                start = int(b.group(1), 16)
+                loops.append(dict(start=start, end=addr,
+                                  kinds=kinds(start, addr)))
+        out[fn] = dict(kinds=kinds(0, 1 << 62), loops=loops)
+    return out
+
+
 @functools.lru_cache(maxsize=1)
-def sass_multiplies() -> dict:
-    """Integer multiply instructions (IMAD, IMAD.WIDE, IMAD.HI, ...; not the
-    IMAD.MOV / IMAD.IADD / IMAD.SHL moves) of each kernel function in the
-    built library's SASS, from cuobjdump (read once per process)."""
+def sass_report() -> dict:
+    """`parse_sass` of the built library (cuobjdump, read once per
+    process)."""
     from .. import _build
     _build.library()
     cub = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     out = subprocess.run([cub, "-sass", _build.lib_path], capture_output=True,
                          text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in out.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn and re.search(r"\bIMAD\b|\bIMAD\.", line) and not re.search(
-                r"IMAD\.(MOV|IADD|SHL)", line):
-            counts[fn] += 1
-    if not counts:
+    report = parse_sass(out)
+    if not report:
         raise AssertionError("cuobjdump found no kernel functions")
-    return counts
+    return report
+
+
+def sass_multiplies() -> dict:
+    """Integer multiply instructions (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X; not
+    the IMAD.MOV / IMAD.IADD / IMAD.SHL moves) of each kernel function in
+    the built library's SASS, all kinds together."""
+    return {fn: sum(r["kinds"].values()) for fn, r in sass_report().items()}
+
+
+def loop_multiplies(fn_parts) -> dict:
+    """Multiplies by kind in the busiest loop of the one function whose
+    name holds every string of fn_parts: the per-element count of a kernel
+    whose element loop holds the work, where a count of the whole function
+    would add its set-up and other loops."""
+    hits = [r for fn, r in sass_report().items()
+            if all(p in fn for p in fn_parts)]
+    if len(hits) != 1 or not hits[0]["loops"]:
+        raise AssertionError(f"SASS loop of {fn_parts}: {len(hits)} hits")
+    return max((lp["kinds"] for lp in hits[0]["loops"]),
+               key=lambda k: sum(k.values()))
+
+
+def ptxas_report() -> dict:
+    """Registers, spill stores and loads, and stack of each kernel function,
+    from the `ptxas -v` log the build keeps beside the library."""
+    from .. import _build
+    _build.library()
+    out, fn = {}, None
+    with open(_build.lib_path + ".ptxas") as f:
+        for line in f:
+            m = re.search(r"(?:Compiling entry function '|Function properties "
+                          r"for )(\w+)", line)
+            if m:
+                fn = m.group(1)
+                out.setdefault(fn, {})
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                out[fn].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 class Bounds:

@@ -1,6 +1,6 @@
-"""Kernels A-D and 8-15 of halo2_tpu_torch (BN254 and Pasta instances)
-against their plain PyTorch versions on a CUDA device, and GPU proofs (KZG
-and IPA) against CPU proofs.  Every test needs the
+"""Kernels A-D, 8-15 and the ordering pass of halo2_tpu_torch (BN254 and
+Pasta instances) against their plain PyTorch versions on a CUDA device,
+and GPU proofs (KZG and IPA) against CPU proofs.  Every test needs the
 card and skips without one.  The file imports nothing of JAX, so on a
 machine without JAX run it as
 
@@ -24,8 +24,6 @@ from halo2_tpu_torch.msm import StreamMSM, msm, naive_msm
 from halo2_tpu_torch.msm import bucket_scan as bs
 from halo2_tpu_torch.msm import stream_msm as sm
 from halo2_tpu_torch.msm.host_msm import host_msm
-from halo2_tpu_torch.msm.stream_msm import (stream_bucket,
-                                            stream_bucket_plain, stream_keys)
 from halo2_tpu_torch.ntt import get_ntt
 from halo2_tpu_torch.ntt.fused import base_ntt, base_ntt_plain, stage_table
 from halo2_tpu_torch.tools import alu_probe, dma_gather_probe, transpose_probe
@@ -111,16 +109,40 @@ def test_kernel_c_matches_plain(F, cuda):
     assert torch.equal(ntt.inverse(ntt.forward(big)), big)
 
 
+def _stream_scalar_sets(C, n: int, seed: int) -> list:
+    """Random, 16-bit, zero, equal, one-bucket and sparse (0, 1, 2)
+    scalars."""
+    rng = np.random.default_rng(seed)
+    return [_ints(C.Fr.p, n - 3, seed),
+            [int(v) for v in rng.integers(0, 1 << 16, size=n)], [0] * n,
+            [C.Fr.p - 5] * n, [1] * n,
+            [int(v) for v in rng.integers(0, 3, size=n)]]
+
+
+def _check_stream_pass(C, keys, table, per_window):
+    """The ordering pass and kernel D or 8 against their plain versions."""
+    nkeys = sm.n_keys(keys, per_window)
+    pieces = sm.pieces_for(C, keys.numel(), nkeys, keys.device)
+    slots = sm.slots_for(pieces, nkeys)
+    order, info = sm.msm_order(keys, per_window, pieces)
+    p_order, p_info = sm.msm_order_plain(keys, per_window, pieces)
+    total = int(info[0])
+    assert torch.equal(info, p_info)
+    assert torch.equal(order[:total], p_order[:total])
+    got = sm.stream_bucket_windows(C, order, table, info, nkeys, slots) \
+        if per_window else sm.stream_bucket(C, order, table, info, slots)
+    assert torch.equal(got, sm.accumulate_plain(C, order, table, info, nkeys,
+                                                slots))
+
+
 @pytest.mark.parametrize("C", [C, VESTA], ids=["bn254", "vesta"])
 def test_kernel_d_matches_plain_and_naive(C, cuda):
     n = 1 << 10
     bases = C.generator_mul(C.Fr.encode_ints(_ints(C.Fr.p, n - 3, 6), cuda))
     desc = StreamMSM(C, bases)
-    for vals in (_ints(C.Fr.p, n - 3, 7), [0] * n, [C.Fr.p - 5] * n):
+    for vals in _stream_scalar_sets(C, n, 7):
         s = C.Fr.encode_ints(vals, cuda)
-        keys = stream_keys(C, s, desc.lanes)
-        assert torch.equal(stream_bucket(C, keys, desc.table),
-                           stream_bucket_plain(C, keys, desc.table))
+        _check_stream_pass(C, sm.stream_keys(C, s), desc.table, False)
         assert C.to_affine_ints(desc(s)[None]) == \
             C.to_affine_ints(naive_msm(C, s, bases)[None])
 
@@ -129,13 +151,10 @@ def test_kernel_d_matches_plain_and_naive(C, cuda):
 def test_kernel_8_matches_plain_and_naive(C, cuda):
     n = 1 << 10
     bases = C.generator_mul(C.Fr.encode_ints(_ints(C.Fr.p, n - 3, 8), cuda))
-    lanes = sm.unbaked_lanes(n, 43)
-    table = sm.pack_base_stream_table(C, bases, lanes)
-    for vals in (_ints(C.Fr.p, n - 3, 9), [0] * n, [C.Fr.p - 5] * n):
+    table = sm.pack_base_stream_table(C, bases)
+    for vals in _stream_scalar_sets(C, n, 9):
         s = C.Fr.encode_ints(vals, cuda)
-        keys = sm.window_keys(C, s, table.shape[0], lanes)
-        assert torch.equal(sm.stream_bucket_windows(C, keys, table),
-                           sm.stream_bucket_windows_plain(C, keys, table))
+        _check_stream_pass(C, sm.stream_keys(C, s), table, True)
         assert C.to_affine_ints(sm.msm_stream_unbaked(C, s, table)[None]) \
             == C.to_affine_ints(naive_msm(C, s, bases)[None])
 

@@ -1,0 +1,124 @@
+"""The carry-chain Montgomery product of kernels D and 8
+(halo2_tpu_torch/csrc/mont_chain.cuh) on the CPU, and the SASS census of
+halo2_tpu_torch/tools/card.py.
+
+The product's primitives carry a host model of the PTX carry flag, so g++
+builds the same chain here; its words are held against python integers
+for the four moduli, with 0, 1, p - 1 and random canonical operands.  The
+SASS parser is held against a hand-written listing in cuobjdump's format.
+"""
+
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+from halo2_tpu_torch.fields import BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ
+from halo2_tpu_torch.tools import card
+
+CSRC = os.path.join(os.path.dirname(__file__), os.pardir, "halo2_tpu_torch",
+                    "csrc")
+
+HARNESS = r"""
+#include <cstdint>
+#include <cstdio>
+struct Fe { uint32_t w[8]; };
+struct Mod {
+  static uint32_t P[8], INV;
+  static uint32_t p(int i) { return P[i]; }
+  static uint32_t inv() { return INV; }
+};
+uint32_t Mod::P[8], Mod::INV;
+#include "mont_chain.cuh"
+int main() {
+  for (int i = 0; i < 8; i++) scanf("%x", &Mod::P[i]);
+  scanf("%x", &Mod::INV);
+  int n;
+  scanf("%d", &n);
+  for (int k = 0; k < n; k++) {
+    Fe a, b;
+    for (int i = 0; i < 8; i++) scanf("%x", &a.w[i]);
+    for (int i = 0; i < 8; i++) scanf("%x", &b.w[i]);
+    const Fe r = fe_mul_chain<Mod>(a, b);
+    for (int i = 0; i < 8; i++) printf("%x ", r.w[i]);
+    printf("\n");
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def chain_binary(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to build the host model")
+    d = tmp_path_factory.mktemp("mont_chain")
+    src, exe = d / "harness.cpp", d / "harness"
+    src.write_text(HARNESS)
+    subprocess.run([cxx, "-O2", "-std=c++17", "-I", CSRC, "-o", str(exe),
+                    str(src)], check=True, capture_output=True, timeout=120)
+    return str(exe)
+
+
+def _words(x: int) -> str:
+    return " ".join(f"{(x >> (32 * i)) & 0xFFFFFFFF:x}" for i in range(8))
+
+
+@pytest.mark.parametrize("F", [BN254_FR, BN254_FQ, PASTA_FP, PASTA_FQ],
+                         ids=["fr", "fq", "pasta-fp", "pasta-fq"])
+def test_chain_product_matches_integers(chain_binary, F):
+    p = F.p
+    rng = np.random.default_rng(3)
+    edge = [0, 1, 2, p - 1, p - 2, (1 << 255) % p]
+    rand = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(600)]
+    pairs = [(a, b) for a in edge for b in edge] + \
+        list(zip(rand[:300], rand[300:])) + [(a, p - 1) for a in rand[:50]]
+    inv = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    text = f"{_words(p)} {inv:x}\n{len(pairs)}\n" + "\n".join(
+        f"{_words(a)} {_words(b)}" for a, b in pairs)
+    out = subprocess.run([chain_binary], input=text, capture_output=True,
+                         text=True, check=True, timeout=60).stdout.split("\n")
+    r_inv = pow(1 << 256, -1, p)
+    for (a, b), line in zip(pairs, out):
+        got = sum(int(w, 16) << (32 * i) for i, w in enumerate(line.split()))
+        assert got == a * b * r_inv % p, (hex(a), hex(b))
+
+
+SASS = """
+	code for sm_90a
+		Function : _Z15k_stream_bucketI7Bn254G1EvPKiPKjS0_iiP5uint4Pi
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+        /*0010*/                   IMAD.MOV.U32 R4, RZ, RZ, 0x1 ;          /* 0x000fe200078e00ff */
+        /*0020*/                   IMAD R5, R2, R3, RZ ;                  /* 0x0000000302057224 */
+        /*0030*/                   IMAD.WIDE.U32 R6, R2, R3, R4 ;         /* 0x0000000302067225 */
+        /*0040*/                   IMAD.HI.U32 R8, R2, R3, RZ ;           /* 0x0000000302087227 */
+        /*0050*/               @P0 IMAD.X R9, RZ, RZ, R9, P1 ;            /* 0x000000ffff097224 */
+        /*0060*/                   IMAD.SHL.U32 R10, R2, 0x4, RZ ;        /* 0x0000000402107824 */
+        /*0070*/              @!P2 BRA 0x30 ;                             /* 0x0000000000007947 */
+        /*0080*/                   IMAD.IADD R11, R2, 0x1, R3 ;           /* 0x000000010203b824 */
+        /*0090*/                   IMAD R12, R2, R3, RZ ;                 /* 0x000000030205c224 */
+        /*00a0*/                   BRA 0xa0 ;                             /* 0xfffffffc00fc7947 */
+		Function : _Z16k_u32_mul_repeatPKjS0_Pjxi
+        /*0000*/                   IMAD R2, R2, R3, 0x1 ;                 /* 0x0000000102027424 */
+        /*0010*/                   EXIT ;                                 /* 0x000000000000794d */
+"""
+
+
+def test_parse_sass_counts_kinds_and_loops():
+    """Multiplies by kind per function and per loop (a branch back to an
+    earlier address); moves (IMAD.MOV / IADD / SHL) are not multiplies."""
+    rep = card.parse_sass(SASS)
+    fn = rep["_Z15k_stream_bucketI7Bn254G1EvPKiPKjS0_iiP5uint4Pi"]
+    assert fn["kinds"] == {"IMAD": 2, "IMAD.WIDE": 1, "IMAD.HI": 1,
+                           "IMAD.X": 1}
+    assert fn["loops"] == [dict(start=0x30, end=0x70, kinds={
+        "IMAD.WIDE": 1, "IMAD.HI": 1, "IMAD.X": 1})]
+    assert rep["_Z16k_u32_mul_repeatPKjS0_Pjxi"] == dict(
+        kinds={"IMAD": 1}, loops=[])
+    assert [card.imad_kind(op) for op in (
+        "IMAD.MOV.U32", "IMAD.WIDE.U32.X", "IMAD.HI.U32", "IADD3", "IMAD")] \
+        == [None, "IMAD.WIDE", "IMAD.HI", None, "IMAD"]

@@ -1,12 +1,13 @@
 """The port's fixed-base MSMs against the JAX reference, with adversarial
-scalars: the stream MSM (kernel D's and kernel 8's plain versions, the
-lane tree sum, the weighted bucket fold) against naive_msm,
-default_cached_msm and msm_stream_unbaked, and the signed digits word for
-word.  MSM results compare as affine points (the projective form depends
-on the algorithm).  The plain versions of kernels D and 8 run on both
-sides of `cuda_ops.on_ints` (python ints for small CPU batches, int64
-limbs otherwise).  The variable-base MSM and kernel 9 are in
-test_torch_msm_variable.py."""
+scalars: the stream MSM (the ordering pass's and kernel D's and kernel 8's
+plain versions, the key sums of the partial sums, the weighted bucket
+fold) against naive_msm, default_cached_msm and msm_stream_unbaked, and
+the signed digits word for word.  MSM results compare as affine points
+(the projective form depends on the algorithm).  The plain versions of
+kernels D and 8 run on both sides of `cuda_ops.on_ints` (python ints for
+small CPU batches, int64 limbs otherwise).  The ordering pass and the
+baked MSM against the reference are in test_torch_msm_order.py; the
+variable-base MSM and kernel 9 in test_torch_msm_variable.py."""
 
 import numpy as np
 import pytest
@@ -27,15 +28,14 @@ from halo2_tpu_torch.fields import PASTA_FP, cuda_ops
 from halo2_tpu_torch.msm import StreamMSM
 from halo2_tpu_torch.msm.bucket_scan import _signed_digits, n_windows_for
 from halo2_tpu_torch.msm import stream_msm
-from halo2_tpu_torch.msm.stream_msm import (N_BUCKETS, STREAM_C, lanes_for,
-                                            msm_stream_unbaked,
+from halo2_tpu_torch.msm.stream_msm import (NB, STREAM_C, accumulate_plain,
+                                            msm_order, msm_stream_unbaked,
                                             pack_base_stream_table,
-                                            stream_bucket,
-                                            stream_bucket_plain,
+                                            key_sums, pieces_for,
+                                            reset_stream_counters, slots_for,
+                                            stream_bucket, stream_buckets,
                                             stream_bucket_windows,
-                                            stream_bucket_windows_plain,
-                                            stream_keys, unbaked_lanes,
-                                            window_keys)
+                                            stream_counters, stream_keys)
 
 # The plain versions run many small tensor ops: one thread per worker
 # is as fast and leaves the other cores to the other test workers.
@@ -60,6 +60,10 @@ def _scalars(n: int, seed: int, kind: str) -> list:
         return [P_ORDER - 12345] * n
     if kind == "sparse":
         return [int(v) for v in rng.integers(0, 3, size=n)]
+    if kind == "16-bit":
+        return [int(v) for v in rng.integers(0, 1 << 16, size=n)]
+    if kind == "one-bucket":
+        return [1] * n
     if kind == "top":
         return [P_ORDER - 1 - int(v) for v in rng.integers(0, 4, size=n)]
     words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
@@ -124,36 +128,48 @@ def test_stream_msm_matches_cached_msm_at_2_10(bases):
 
 
 def test_kernel_d_plain_lanes_and_buckets(desc_2_8, monkeypatch):
-    """The plain version of kernel D, called directly: bucket sums of lane
-    j are the madds of that lane's stream rows into bucket key >> 1."""
+    """The plain version of kernel D, called directly on the ordering
+    pass's split: the piece sums of a bucket, added up, are the madds of
+    that bucket's table rows (y negated on a negative digit); slots past NS
+    hold the identity; `key_sums` adds each bucket's pieces."""
     desc = desc_2_8
     n = 1 << 8
-    assert desc.lanes == lanes_for(43 * n) == 256
-    assert tuple(desc.table.shape) == (43, 18, 256)
+    assert desc.baked and tuple(desc.table.shape) == (43 * n, 18)
     vals = _scalars(n, 9, "random")
-    keys = stream_keys(C, C.Fr.encode_ints(vals, "cpu"), desc.lanes)
-    nb = N_BUCKETS
-    outs = [stream_bucket_plain(C, keys, desc.table)
+    keys = stream_keys(C, C.Fr.encode_ints(vals, "cpu"))
+    assert keys.shape == (43, n)
+    pieces = 400
+    slots = slots_for(pieces, NB)
+    order, info = msm_order(keys, False, pieces)
+    total, step, ns = (int(v) for v in info[:3])
+    assert total == int((keys >> 1).ne(0).sum()) and ns <= slots
+    assert step == -(-total // pieces)
+    outs = [accumulate_plain(C, order, desc.table, info, NB, slots)
             for _ in plain_paths(monkeypatch)]
-    out = outs[0]
-    assert torch.equal(out, outs[1])
-    assert torch.equal(out, stream_bucket(C, keys, desc.table))
-    assert out.shape == (256, nb, 3, 8)
-    lane = 77
-    acc = {}
-    for s in range(keys.shape[0]):
-        k = int(keys[s, lane])
-        row = desc.table[s, :, lane]
-        if int(row[16]) & 1:
-            continue
-        xy = C.Fq.decode_ints(row[:16].reshape(2, 8))
-        if k & 1:
-            xy[1] = (-xy[1]) % C.Fq.p
-        acc.setdefault(k >> 1, []).append(tuple(xy))
-    got = C.to_affine_ints(out[lane])
-    for b in range(nb):
-        terms = acc.get(b, [])
-        assert got[b] == host_msm(REF, [1] * len(terms), terms)
+    partials = outs[0]
+    assert torch.equal(partials, outs[1])
+    assert torch.equal(partials, stream_bucket(C, order, desc.table, info,
+                                               slots))
+    assert partials.shape == (slots, 3, 8)
+    assert C.is_identity(partials[ns:]).all()
+    seg_base = [int(v) for v in info[5 + NB:]]
+    sums = C.to_affine_ints(key_sums(C, partials, info, NB))
+    flat = keys.reshape(-1)
+    for bucket in (0, 7, 31):
+        terms = []
+        for e in torch.nonzero((flat >> 1) == bucket + 1).reshape(-1):
+            row = desc.table[int(e)]
+            if int(row[16]) & 1:
+                continue
+            xy = C.Fq.decode_ints(row[:16].reshape(2, 8))
+            if int(flat[e]) & 1:
+                xy[1] = (-xy[1]) % C.Fq.p
+            terms.append(tuple(xy))
+        parts = [p for p in C.to_affine_ints(
+            partials[seg_base[bucket]:seg_base[bucket + 1]]) if p is not None]
+        want = host_msm(REF, [1] * len(terms), terms)
+        assert host_msm(REF, [1] * len(parts), parts) == want
+        assert sums[bucket] == want
 
 
 def test_gpu_msm_engine_caches_descriptors(bases):
@@ -181,10 +197,10 @@ def test_unbaked_table_above_max_baked_rows(bases, monkeypatch):
     _, pts = bases
     monkeypatch.setattr(stream_msm, "MAX_BAKED_ROWS", 43 * 16)
     baked = StreamMSM(C, pts[:16])
-    assert baked.baked and baked.lanes == 32
+    assert baked.baked and tuple(baked.table.shape) == (43 * 16, 18)
     unbaked = StreamMSM(C, pts[:17])
     assert not unbaked.baked
-    assert tuple(unbaked.table.shape) == (1, 18, unbaked_lanes(17, 43))
+    assert tuple(unbaked.table.shape) == (17, 18)
     vals = _scalars(17, 12, "random")
     want = [host_msm(REF, vals, C.to_affine_ints(pts[:17]))]
     assert C.to_affine_ints(unbaked(C.Fr.encode_ints(vals, "cpu"))[None]) \
@@ -197,29 +213,43 @@ def test_unbaked_table_above_max_baked_rows(bases, monkeypatch):
 # kernel 8 (unbaked stream), plain version
 # ----------------------------------------------------------------------
 
-def test_msm_stream_unbaked_matches_reference(bases, monkeypatch):
-    """msm_stream_unbaked (kernel 8's plain version, per-window folds and
-    the Horner combine) against the reference's at n = 2^8, and kernel 8's
-    plain version against a per-window run of kernel D's."""
+@pytest.mark.parametrize("kind", ["random", "16-bit", "zeros", "equal",
+                                  "one-bucket"])
+def test_msm_stream_unbaked_matches_reference(bases, monkeypatch, kind):
+    """msm_stream_unbaked (the ordering pass and kernel 8's plain versions,
+    the key sums, per-window folds and the Horner combine) against the
+    reference's at n = 2^8; each window's bucket sums against a one-window
+    pass of kernel D's plain version over the same table; and (random)
+    kernel 8's plain version on both sides of `on_ints`."""
     ref_pts, pts = bases
     n = 1 << 8
-    lanes = unbaked_lanes(n, 43)
-    table = pack_base_stream_table(C, pts[:n], lanes)
+    lanes = 32
+    table = pack_base_stream_table(C, pts[:n])
     ref_table = ref_pack_base_stream_table(REF, ref_pts[:n], lanes)
-    assert table.shape == (n // lanes, 18, lanes)
-    vals = _scalars(n, 14, "random")
-    vals[:4] = [0, 1, P_ORDER - 1, P_ORDER - 2]
+    assert table.shape == (n, 18)
+    vals = _scalars(n, 14, kind)
+    if kind == "random":
+        vals[:4] = [0, 1, P_ORDER - 1, P_ORDER - 2]
+    reset_stream_counters()
     ours = msm_stream_unbaked(C, C.Fr.encode_ints(vals, "cpu"), table)
     theirs = ref_msm_stream_unbaked(REF, REF.Fr.encode_ints(vals), ref_table,
                                     STREAM_C, lanes)
     assert C.to_affine_ints(ours[None]) == REF.to_affine_ints(theirs[None])
-    keys = window_keys(C, C.Fr.encode_ints(vals, "cpu"), table.shape[0],
-                       lanes)
-    for path in plain_paths(monkeypatch):
-        out = stream_bucket_windows_plain(C, keys, table)
-        assert torch.equal(out, stream_bucket_windows(C, keys, table))
-        assert out.shape == (43, lanes, N_BUCKETS, 3, 8)
-        for w in (0, 21, 42):
-            rows = keys[w * table.shape[0]:(w + 1) * table.shape[0]]
-            assert torch.equal(out[w], stream_bucket_plain(C, rows, table)), \
-                path
+    keys = stream_keys(C, C.Fr.encode_ints(vals, "cpu"))
+    assert stream_counters() == dict(
+        streamed=keys.numel(), added=int((keys >> 1).ne(0).sum()))
+    sums = stream_buckets(C, keys, table, True).reshape(43, NB, 3, 8)
+    for w in (0, 2, 42):
+        one = stream_buckets(C, keys[w:w + 1], table, False)
+        assert C.to_affine_ints(sums[w]) == C.to_affine_ints(one)
+    if kind != "random":
+        return
+    nkeys = NB * keys.shape[0]
+    pieces = pieces_for(C, keys.numel(), nkeys, "cpu")
+    slots = slots_for(pieces, nkeys)
+    order, info = msm_order(keys, True, pieces)
+    outs = [accumulate_plain(C, order, table, info, nkeys, slots)
+            for _ in plain_paths(monkeypatch)]
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], stream_bucket_windows(C, order, table, info,
+                                                      nkeys, slots))

@@ -2,13 +2,14 @@
 //
 // Element format: 8 little-endian 32-bit words holding the Montgomery value
 // a * 2^256 mod p (the same R = 2^256 as the JAX reference), canonical < p.
-// Field ops are CIOS Montgomery multiplication over 8 x 32-bit limbs with
-// 64-bit products (IMAD.WIDE on Hopper; the carry-chain form for kernels D
-// and 8 is in mont_chain.cuh), modular add and sub; the curve
-// bodies are the Renes-Costello-Batina complete formulas (eprint 2015/1060,
-// Algs 7-9, a = 0) in exactly the operation order of the JAX reference's
-// curves/pallas_ec.py, so a kernel and its plain PyTorch version produce
-// identical projective coordinates.
+// Field ops are Montgomery multiplication over 8 x 32-bit limbs, modular add
+// and sub.  Two products return the same canonical words: fe_mul below, CIOS
+// in C with 64-bit products (kernels A, C and 10), and mont_chain.cuh's
+// fe_mul_chain, PTX carry chains, which every curve body uses (kernels B, D,
+// 8 and 9).  The curve bodies are the Renes-Costello-Batina complete formulas
+// (eprint 2015/1060, Algs 7-9, a = 0) in exactly the operation order of the
+// JAX reference's curves/pallas_ec.py, so a kernel and its plain PyTorch
+// version produce identical projective coordinates.
 //
 // Everything is a template over a modulus M (p, -p^-1 mod 2^32, R mod p)
 // and a curve C (its base-field modulus C::Q and its b3 = 3b): BN254 (Fr,
@@ -108,17 +109,21 @@ struct PastaFq {
   }
 };
 
-// Curves y^2 = x^3 + b: base-field modulus Q and b3 = 3b.
+// Curves y^2 = x^3 + b: base-field modulus Q, scalar-field modulus R (the
+// group's order) and b3 = 3b.
 struct Bn254G1 {
   typedef Bn254Fq Q;
+  typedef Bn254Fr R;
   static constexpr int B3 = 9;
 };
 struct Pallas {
   typedef PastaFp Q;
+  typedef PastaFq R;
   static constexpr int B3 = 15;
 };
 struct Vesta {
   typedef PastaFq Q;
+  typedef PastaFp R;
   static constexpr int B3 = 15;
 };
 
@@ -251,22 +256,6 @@ struct Pt {
   Fe x, y, z;
 };
 
-// The Montgomery product a curve body uses: arith.cuh's C form (kernels B,
-// 9 and the rest) or mont_chain.cuh's carry chains (kernels D and 8).  Both
-// return the same canonical words.
-struct MulCios {
-  template <class M>
-  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
-    return fe_mul<M>(a, b);
-  }
-};
-struct MulChain {
-  template <class M>
-  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
-    return fe_mul_chain<M>(a, b);
-  }
-};
-
 // x * 3b by the reference's addition chains: 9x = 8x + x (BN254),
 // 15x = 16x - x (Pasta).
 template <class C>
@@ -295,14 +284,14 @@ __device__ __forceinline__ Pt pt_identity() {
 template <class C>
 __device__ __forceinline__ Pt ec_add_body(const Pt& P, const Pt& R) {
   typedef typename C::Q Q;
-  Fe t0 = fe_mul<Q>(P.x, R.x);
-  Fe t1 = fe_mul<Q>(P.y, R.y);
-  Fe t2 = fe_mul<Q>(P.z, R.z);
-  Fe t3 = fe_mul<Q>(fe_add<Q>(P.x, P.y), fe_add<Q>(R.x, R.y));
+  Fe t0 = fe_mul_chain<Q>(P.x, R.x);
+  Fe t1 = fe_mul_chain<Q>(P.y, R.y);
+  Fe t2 = fe_mul_chain<Q>(P.z, R.z);
+  Fe t3 = fe_mul_chain<Q>(fe_add<Q>(P.x, P.y), fe_add<Q>(R.x, R.y));
   t3 = fe_sub<Q>(t3, fe_add<Q>(t0, t1));
-  Fe t4 = fe_mul<Q>(fe_add<Q>(P.y, P.z), fe_add<Q>(R.y, R.z));
+  Fe t4 = fe_mul_chain<Q>(fe_add<Q>(P.y, P.z), fe_add<Q>(R.y, R.z));
   t4 = fe_sub<Q>(t4, fe_add<Q>(t1, t2));
-  Fe y3 = fe_mul<Q>(fe_add<Q>(P.x, P.z), fe_add<Q>(R.x, R.z));
+  Fe y3 = fe_mul_chain<Q>(fe_add<Q>(P.x, P.z), fe_add<Q>(R.x, R.z));
   y3 = fe_sub<Q>(y3, fe_add<Q>(t0, t2));
   t0 = fe_add<Q>(fe_add<Q>(t0, t0), t0);
   t2 = mul_b3<C>(t2);
@@ -310,36 +299,36 @@ __device__ __forceinline__ Pt ec_add_body(const Pt& P, const Pt& R) {
   t1 = fe_sub<Q>(t1, t2);
   y3 = mul_b3<C>(y3);
   Pt out;
-  out.x = fe_sub<Q>(fe_mul<Q>(t3, t1), fe_mul<Q>(t4, y3));
-  out.y = fe_add<Q>(fe_mul<Q>(y3, t0), fe_mul<Q>(t1, z3));
-  out.z = fe_add<Q>(fe_mul<Q>(z3, t4), fe_mul<Q>(t0, t3));
+  out.x = fe_sub<Q>(fe_mul_chain<Q>(t3, t1), fe_mul_chain<Q>(t4, y3));
+  out.y = fe_add<Q>(fe_mul_chain<Q>(y3, t0), fe_mul_chain<Q>(t1, z3));
+  out.z = fe_add<Q>(fe_mul_chain<Q>(z3, t4), fe_mul_chain<Q>(t0, t3));
   return out;
 }
 
 // Complete mixed addition, RC15 Alg 8 (pallas_ec._madd_body_ec): P plus the
-// affine (x2, y2); lanes with q_inf pass P through.  Mul: the product.
-template <class C, class Mul = MulCios>
+// affine (x2, y2); lanes with q_inf pass P through.
+template <class C>
 __device__ __forceinline__ Pt ec_madd_body(const Pt& P, const Fe& x2,
                                            const Fe& y2, bool q_inf) {
   typedef typename C::Q Q;
-  Fe t0 = Mul::template mul<Q>(P.x, x2);
-  Fe t1 = Mul::template mul<Q>(P.y, y2);
-  Fe t3 = Mul::template mul<Q>(fe_add<Q>(x2, y2), fe_add<Q>(P.x, P.y));
+  Fe t0 = fe_mul_chain<Q>(P.x, x2);
+  Fe t1 = fe_mul_chain<Q>(P.y, y2);
+  Fe t3 = fe_mul_chain<Q>(fe_add<Q>(x2, y2), fe_add<Q>(P.x, P.y));
   t3 = fe_sub<Q>(t3, fe_add<Q>(t0, t1));
-  Fe t4 = fe_add<Q>(Mul::template mul<Q>(y2, P.z), P.y);
-  Fe y3 = fe_add<Q>(Mul::template mul<Q>(x2, P.z), P.x);
+  Fe t4 = fe_add<Q>(fe_mul_chain<Q>(y2, P.z), P.y);
+  Fe y3 = fe_add<Q>(fe_mul_chain<Q>(x2, P.z), P.x);
   t0 = fe_add<Q>(fe_add<Q>(t0, t0), t0);
   Fe t2 = mul_b3<C>(P.z);
   Fe z3 = fe_add<Q>(t1, t2);
   t1 = fe_sub<Q>(t1, t2);
   y3 = mul_b3<C>(y3);
   Pt out;
-  out.x = fe_sub<Q>(Mul::template mul<Q>(t3, t1),
-                    Mul::template mul<Q>(t4, y3));
-  out.y = fe_add<Q>(Mul::template mul<Q>(y3, t0),
-                    Mul::template mul<Q>(t1, z3));
-  out.z = fe_add<Q>(Mul::template mul<Q>(z3, t4),
-                    Mul::template mul<Q>(t0, t3));
+  out.x = fe_sub<Q>(fe_mul_chain<Q>(t3, t1),
+                    fe_mul_chain<Q>(t4, y3));
+  out.y = fe_add<Q>(fe_mul_chain<Q>(y3, t0),
+                    fe_mul_chain<Q>(t1, z3));
+  out.z = fe_add<Q>(fe_mul_chain<Q>(z3, t4),
+                    fe_mul_chain<Q>(t0, t3));
   return q_inf ? P : out;
 }
 
@@ -347,22 +336,22 @@ __device__ __forceinline__ Pt ec_madd_body(const Pt& P, const Fe& x2,
 template <class C>
 __device__ __forceinline__ Pt ec_double_body(const Pt& P) {
   typedef typename C::Q Q;
-  Fe t0 = fe_mul<Q>(P.y, P.y);
+  Fe t0 = fe_mul_chain<Q>(P.y, P.y);
   Fe z3 = fe_add<Q>(t0, t0);
   z3 = fe_add<Q>(z3, z3);
   z3 = fe_add<Q>(z3, z3);
-  Fe t1 = fe_mul<Q>(P.y, P.z);
-  Fe t2 = fe_mul<Q>(P.z, P.z);
+  Fe t1 = fe_mul_chain<Q>(P.y, P.z);
+  Fe t2 = fe_mul_chain<Q>(P.z, P.z);
   t2 = mul_b3<C>(t2);
-  Fe x3 = fe_mul<Q>(t2, z3);
+  Fe x3 = fe_mul_chain<Q>(t2, z3);
   Fe y3 = fe_add<Q>(t0, t2);
-  z3 = fe_mul<Q>(t1, z3);
+  z3 = fe_mul_chain<Q>(t1, z3);
   t1 = fe_add<Q>(t2, t2);
   t2 = fe_add<Q>(t1, t2);
   t0 = fe_sub<Q>(t0, t2);
-  y3 = fe_add<Q>(x3, fe_mul<Q>(t0, y3));
-  t1 = fe_mul<Q>(P.x, P.y);
-  x3 = fe_mul<Q>(t0, t1);
+  y3 = fe_add<Q>(x3, fe_mul_chain<Q>(t0, y3));
+  t1 = fe_mul_chain<Q>(P.x, P.y);
+  x3 = fe_mul_chain<Q>(t0, t1);
   x3 = fe_add<Q>(x3, x3);
   Pt out;
   out.x = x3;

@@ -1,5 +1,5 @@
-// Montgomery product as PTX carry chains: the product inside kernels D and
-// 8's mixed add (csrc/msm.cu).
+// Montgomery product as PTX carry chains: the product of every curve body
+// in arith.cuh (kernels B, D, 8 and 9).
 //
 // fe_mul_chain<M>(a, b) = a b 2^-256 mod p for canonical a, b < p, returned
 // canonical (< p): the same words as arith.cuh's fe_mul.  It is CIOS over 8

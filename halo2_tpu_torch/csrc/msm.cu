@@ -320,7 +320,7 @@ __device__ __forceinline__ void accumulate(const int* __restrict__ order,
     Fe x, y;
     bool inf;
     row_load<C>((const uint32_t*)stage[s], 1, (cur & 1) != 0, x, y, inf);
-    acc = ec_madd_body<C, MulChain>(acc, x, y, inf);
+    acc = ec_madd_body<C>(acc, x, y, inf);
     cur = nxt;
     nxt = after;
   }

@@ -15,59 +15,71 @@
 // SENTINEL_KEY (msm/bucket_scan.py), which sorts after every bucket, so
 // their lanes add nothing the caller keeps.
 //
-// Bound on the H100: integer ALU, one ~11-multiply mixed add (12 for the
-// projective add) per element, against 72-96 B read per element.  Design:
-// the simple one, one thread per lane walking its chunk in registers (the
-// TPU kept the accumulator in VMEM scratch across a sequential grid; here
-// the loop inside the thread takes that place).  Neighbouring threads read
-// rows `block` elements apart, so a warp's loads are not contiguous, but
-// every 32-byte sector a thread touches is used whole, so no DRAM bandwidth
-// is wasted.  A lane count in the thousands fills few of the 132 SMs at the
-// IPA sizes (4,224 lanes for the first level of an 8,192-point MSM: 0.76 ms
-// on one H100 against an ALU bound of 0.04 ms, chip_smoke.py); more lanes
-// per level is later work.
+// Bound on the H100: integer ALU, one ~11-product mixed add (12 for the
+// projective add) per element, against 72-96 B read per element; at the IPA
+// sizes (a few hundred thousand elements) the card is not full, and each
+// lane's `block` steps are serial.  Design: one thread per lane walking its
+// chunk in registers (the TPU kept the accumulator in VMEM scratch across a
+// sequential grid; here the loop inside the thread takes that place), over
+// the carry-chain product (mont_chain.cuh).  The callers choose `block` per
+// level (bucket_scan.block_for): lanes for one wave of the card, but no
+// fewer than MIN_BLOCK elements a lane, the whole MSM's fastest.  An affine
+// element with its infinity flag set passes the sum through without a mixed
+// add, the same words as the formula's q_inf pass-through: most slots of a
+// tails call are such padding.  Neighbouring lanes read rows `block` apart;
+// every 32-byte sector a thread touches is used whole, and staging a warp's
+// rows through shared memory with coalesced loads ran 8-9% slower at the
+// IPA prove's largest call (PERF.md), so each thread reads its own rows.
 #include "arith.cuh"
 
+static const int SCAN_THREADS = 128;
+
+// One element into a lane's running sum.  e: the element's words, an
+// 18-word affine row or a 24-word projective point.
 template <class C, bool AFFINE, bool PACKED>
-__global__ void k_scan_level(const int* __restrict__ keys,
-                             const uint32_t* __restrict__ rows,
-                             const uint4* __restrict__ pts,
-                             uint4* __restrict__ finals,
-                             int* __restrict__ lane_keys, int block,
-                             long long lanes) {
+__device__ __forceinline__ void scan_elem(int k, const uint32_t* e, Pt& acc,
+                                          int& seg) {
+  typedef typename C::Q Q;
+  bool neg = false;
+  if (PACKED) {
+    neg = (k & 1) != 0;
+    k >>= 1;
+  }
+  const bool fresh = k != seg;
+  seg = k;
+  if (AFFINE) {
+    Fe x, y;
+    bool inf;
+    row_load<C>(e, 1, neg, x, y, inf);
+    if (fresh) {
+#pragma unroll
+      for (int i = 0; i < 8; i++) {
+        acc.x.w[i] = inf ? 0u : x.w[i];
+        acc.y.w[i] = inf ? Q::one(i) : y.w[i];
+        acc.z.w[i] = inf ? 0u : Q::one(i);
+      }
+    } else if (!inf) {
+      acc = ec_madd_body<C>(acc, x, y, false);
+    }
+  } else {
+    const Pt p = pt_load((const uint4*)e, 0);
+    acc = fresh ? p : ec_add_body<C>(acc, p);
+  }
+}
+
+template <class C, bool AFFINE, bool PACKED>
+__global__ void __launch_bounds__(SCAN_THREADS)
+    k_scan_level(const int* __restrict__ keys, const uint32_t* __restrict__ elems,
+                 uint4* __restrict__ finals, int* __restrict__ lane_keys,
+                 int block, long long lanes) {
+  constexpr int W = AFFINE ? 18 : 24;          // words per element
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  typedef typename C::Q Q;
   int seg = -2;
   Pt acc = pt_identity<C>();
   for (int t = 0; t < block; t++) {
     const long long e = lane * block + t;
-    int k = keys[e];
-    bool neg = false;
-    if (PACKED) {
-      neg = (k & 1) != 0;
-      k >>= 1;
-    }
-    const bool fresh = k != seg;
-    if (AFFINE) {
-      Fe x, y;
-      bool inf;
-      row_load<C>(rows + e * 18, 1, neg, x, y, inf);
-      if (fresh) {
-#pragma unroll
-        for (int i = 0; i < 8; i++) {
-          acc.x.w[i] = inf ? 0u : x.w[i];
-          acc.y.w[i] = inf ? Q::one(i) : y.w[i];
-          acc.z.w[i] = inf ? 0u : Q::one(i);
-        }
-      } else {
-        acc = ec_madd_body<C>(acc, x, y, inf);
-      }
-    } else {
-      const Pt p = pt_load(pts, e);
-      acc = fresh ? p : ec_add_body<C>(acc, p);
-    }
-    seg = k;
+    scan_elem<C, AFFINE, PACKED>(keys[e], elems + e * W, acc, seg);
   }
   pt_store(finals, lane, acc);
   lane_keys[lane] = seg;
@@ -81,25 +93,21 @@ extern "C" int h2_scan_level(int curve, int mode, const void* keys,
                              const void* pts, void* finals, void* lane_keys,
                              int block, long long lanes, void* stream) {
   if (lanes > 0) {
-    const int threads = 128;
     const unsigned int blocks =
-        (unsigned int)((lanes + threads - 1) / threads);
+        (unsigned int)((lanes + SCAN_THREADS - 1) / SCAN_THREADS);
     cudaStream_t s = (cudaStream_t)stream;
     const int* k = (const int*)keys;
+    const uint32_t* e = (const uint32_t*)pts;
     uint4* f = (uint4*)finals;
     int* lk = (int*)lane_keys;
+    auto launch = [&](auto kernel) {
+      kernel<<<blocks, SCAN_THREADS, 0, s>>>(k, e, f, lk, block, lanes);
+    };
     with_curve(curve, [&](auto c) {
       typedef decltype(c) C;
-      if (mode == 0) {
-        k_scan_level<C, false, false><<<blocks, threads, 0, s>>>(
-            k, nullptr, (const uint4*)pts, f, lk, block, lanes);
-      } else if (mode == 1) {
-        k_scan_level<C, true, false><<<blocks, threads, 0, s>>>(
-            k, (const uint32_t*)pts, nullptr, f, lk, block, lanes);
-      } else {
-        k_scan_level<C, true, true><<<blocks, threads, 0, s>>>(
-            k, (const uint32_t*)pts, nullptr, f, lk, block, lanes);
-      }
+      if (mode == 0) launch(k_scan_level<C, false, false>);
+      else if (mode == 1) launch(k_scan_level<C, true, false>);
+      else launch(k_scan_level<C, true, true>);
     });
   }
   return (int)cudaGetLastError();

@@ -1,10 +1,12 @@
 """Kernel B (csrc/ec.cu): complete add / mixed add / double on BN254 G1,
-Pallas and Vesta, and their plain PyTorch versions.
+Pallas and Vesta, the double-and-add scalar multiplication as one chain,
+and their plain PyTorch versions.
 
-Replaces the JAX reference's curves/pallas_ec.py (`ec_add`, `ec_madd`, `ec_double`).
-Points are (..., 3, 8) int32 projective words, affine operands (..., 2, 8).
-The wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel.
+Replaces the JAX reference's curves/pallas_ec.py (`ec_add`, `ec_madd`, `ec_double`)
+and the lax.scan of its Curve.scalar_mul.  Points are (..., 3, 8) int32
+projective words, affine operands (..., 2, 8).  The wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+kernel.
 
 The plain versions follow the reference formulas (RC15 Algs 7-9) term by
 term in int64 limbs, grouping independent multiplies into one batched
@@ -28,6 +30,8 @@ _EC_ARGS = [I32, I32, P, P, P, P, I64, P]  # op, curve, p, q, q_inf, out, n,
 _add_kernel = Kernel("h2_ec_op", _EC_ARGS, name="h2_ec_add")
 _madd_kernel = Kernel("h2_ec_op", _EC_ARGS, name="h2_ec_madd")
 _double_kernel = Kernel("h2_ec_op", _EC_ARGS, name="h2_ec_double")
+# curve, points, scalars, scalar step (0: one for all), out, n, stream
+_scalar_mul_kernel = Kernel("h2_ec_scalar_mul", [I32, P, P, I32, P, I64, P])
 
 
 # ----------------------------------------------------------------------
@@ -112,20 +116,33 @@ def _combine_ints(p, r, t0, t1, t3, t4, y3, z3):
             (z3 * t4 + t0 * t3) * r % p)
 
 
+def _add_pt(p, r, b3, x1, y1, z1, x2, y2, z2):
+    t0, t1, t2 = x1 * x2 * r % p, y1 * y2 * r % p, z1 * z2 * r % p
+    t3 = ((x1 + y1) * (x2 + y2) * r - t0 - t1) % p
+    t4 = ((y1 + z1) * (y2 + z2) * r - t1 - t2) % p
+    y3 = ((x1 + z1) * (x2 + z2) * r - t0 - t2) * b3 % p
+    t2 = t2 * b3 % p
+    return _combine_ints(p, r, 3 * t0, t1 - t2, t3, t4, y3, t1 + t2)
+
+
+def _double_pt(p, r, b3, x, y, z):
+    t0 = y * y * r % p
+    t1 = y * z * r % p
+    t2 = z * z * r * b3 % p
+    z3 = 8 * t0
+    y3 = t0 + t2
+    t0 = t0 - 3 * t2
+    return ((2 * t0 * x * y * r * r) % p, (t2 * z3 + t0 * y3) * r % p,
+            t1 * z3 * r % p)
+
+
 def _add_ints(curve, P, Q):
     F = curve.Fq
     p, r, b3 = F.p, F.R_inv, curve.b3
     a, b = ints(P), ints(Q)
     out = []
     for i in range(0, len(a), 3):
-        x1, y1, z1 = a[i:i + 3]
-        x2, y2, z2 = b[i:i + 3]
-        t0, t1, t2 = x1 * x2 * r % p, y1 * y2 * r % p, z1 * z2 * r % p
-        t3 = ((x1 + y1) * (x2 + y2) * r - t0 - t1) % p
-        t4 = ((y1 + z1) * (y2 + z2) * r - t1 - t2) % p
-        y3 = ((x1 + z1) * (x2 + z2) * r - t0 - t2) * b3 % p
-        t2 = t2 * b3 % p
-        out += _combine_ints(p, r, 3 * t0, t1 - t2, t3, t4, y3, t1 + t2)
+        out += _add_pt(p, r, b3, *a[i:i + 3], *b[i:i + 3])
     return words(out, P.shape)
 
 
@@ -156,16 +173,24 @@ def _double_ints(curve, P):
     a = ints(P)
     out = []
     for i in range(0, len(a), 3):
-        x, y, z = a[i:i + 3]
-        t0 = y * y * r % p
-        t1 = y * z * r % p
-        t2 = z * z * r * b3 % p
-        z3 = 8 * t0
-        y3 = t0 + t2
-        t0 = t0 - 3 * t2
-        out += ((2 * t0 * x * y * r * r) % p,
-                (t2 * z3 + t0 * y3) * r % p,
-                t1 * z3 * r % p)
+        out += _double_pt(p, r, b3, *a[i:i + 3])
+    return words(out, P.shape)
+
+
+def _scalar_mul_ints(curve, P, k):
+    """The double-and-add chain per point, k canonical scalar words."""
+    F = curve.Fq
+    p, r, b3 = F.p, F.R_inv, curve.b3
+    a = ints(P)
+    out = []
+    for j, s in enumerate(ints(k)):
+        acc, base = (0, F.R, 0), a[3 * j:3 * j + 3]
+        for i in range(s.bit_length()):
+            if (s >> i) & 1:
+                acc = _add_pt(p, r, b3, *acc, *base)
+            if i + 1 < s.bit_length():
+                base = _double_pt(p, r, b3, *base)
+        out += acc
     return words(out, P.shape)
 
 
@@ -219,11 +244,43 @@ def ec_double_plain(curve, P):
     return out.reshape(shape)
 
 
+def _batch(P, k):
+    """The broadcast batch shape of points (..., 3, 8) and scalars (..., 8)."""
+    # torch.broadcast_shapes would do, but its first call imports for
+    # seconds; broadcasting one word of each operand costs nothing
+    return torch.broadcast_tensors(P[..., 0, 0], k[..., 0])[0].shape
+
+
+def scalar_mul_plain(curve, P, k_mont):
+    """Plain version of the scalar-mul chain: [k]P for (..., 3, 8) points and
+    broadcast (..., 8) Montgomery scalars, double-and-add over the 256 bits
+    of canonical k, least significant first: at a set bit acc = acc + base
+    (kernel B's add), then base doubles.  Small CPU batches run the chain
+    per point over python ints (`on_ints`)."""
+    batch = _batch(P, k_mont)
+    P = P.expand(batch + (3, NWORDS))
+    k = curve.Fr.from_mont(k_mont).expand(batch + (NWORDS,))
+    if on_ints(P, points=True):
+        return _scalar_mul_ints(curve, P, k)
+    k = k.to(torch.int64) & 0xFFFFFFFF
+    acc = curve.identity(batch, P.device)
+    base = P
+    for i in range(256):
+        bit = ((k[..., i // 32] >> (i % 32)) & 1).bool()
+        acc = torch.where(bit[..., None, None], ec_add_plain(curve, acc, base),
+                          acc)
+        if i < 255:
+            base = ec_double_plain(curve, base)
+    return acc
+
+
 # ----------------------------------------------------------------------
 # wrappers
 # ----------------------------------------------------------------------
 
-def _check(*ts):
+def check_words(*ts):
+    """The kernel wrappers' check: (..., 8) int32 words on one CUDA
+    device."""
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
@@ -240,7 +297,7 @@ def ec_add(curve, P, Q):
     P, Q = torch.broadcast_tensors(P, Q)
     if P.device.type == "cpu":
         return ec_add_plain(curve, P, Q)
-    _check(P, Q)
+    check_words(P, Q)
     P = P.contiguous()
     Q = Q.contiguous()
     out = torch.empty_like(P)
@@ -253,9 +310,7 @@ def ec_add(curve, P, Q):
 def ec_madd(curve, P, Qa, q_inf=None):
     """Complete mixed add: P (..., 3, 8) + affine Qa (..., 2, 8), with an
     optional (...) bool mask of lanes where Q is the identity."""
-    # torch.broadcast_shapes would do, but its first call imports for
-    # seconds; broadcasting one word of each operand costs nothing
-    batch = torch.broadcast_tensors(P[..., 0, 0], Qa[..., 0, 0])[0].shape
+    batch = _batch(P, Qa[..., 0, :])
     P = P.expand(batch + (3, NWORDS))
     Qa = Qa.expand(batch + (2, NWORDS))
     if q_inf is None:
@@ -263,7 +318,7 @@ def ec_madd(curve, P, Qa, q_inf=None):
     q_inf = q_inf.expand(batch)
     if P.device.type == "cpu":
         return ec_madd_plain(curve, P, Qa, q_inf)
-    _check(P, Qa)
+    check_words(P, Qa)
     if q_inf.dtype != torch.bool or q_inf.device != P.device:
         raise ValueError("q_inf must be a bool tensor on the points' device")
     P = P.contiguous()
@@ -280,10 +335,32 @@ def ec_double(curve, P):
     """Complete projective doubling of (..., 3, 8) points."""
     if P.device.type == "cpu":
         return ec_double_plain(curve, P)
-    _check(P)
+    check_words(P)
     P = P.contiguous()
     out = torch.empty_like(P)
     _double_kernel.launch(2, curve.kernel_id, P.data_ptr(), None, None,
                           out.data_ptr(), out.numel() // (3 * NWORDS),
                           stream_of(out))
+    return out
+
+
+def ec_scalar_mul(curve, P, k_mont):
+    """[k]P for (..., 3, 8) points and broadcast (..., 8) Montgomery scalars
+    of the curve's scalar field: on the card one launch of the whole chain,
+    with one scalar for every point when k_mont holds only one."""
+    if P.device.type == "cpu":
+        return scalar_mul_plain(curve, P, k_mont)
+    check_words(P, k_mont)
+    batch = _batch(P, k_mont)
+    P = P.expand(batch + (3, NWORDS)).contiguous()
+    one = all(d == 1 or s == 0 for d, s in zip(k_mont.shape[:-1],
+                                               k_mont.stride()[:-1]))
+    if one:
+        k = k_mont[(0,) * (k_mont.dim() - 1)].contiguous()
+    else:
+        k = k_mont.expand(batch + (NWORDS,)).contiguous()
+    out = torch.empty_like(P)
+    _scalar_mul_kernel.launch(curve.kernel_id, P.data_ptr(), k.data_ptr(),
+                              0 if one else 1, out.data_ptr(),
+                              out.numel() // (3 * NWORDS), stream_of(out))
     return out

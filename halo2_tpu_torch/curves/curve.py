@@ -124,16 +124,9 @@ class Curve:
 
     def scalar_mul(self, P, k_mont):
         """[k]P with k (..., 8) Montgomery scalars: double-and-add over the
-        256 bits of canonical k, least significant first."""
-        k = self.Fr.from_mont(k_mont).to(torch.int64) & 0xFFFFFFFF
-        acc = self.identity(P.shape[:-2], P.device)
-        base = P
-        for i in range(256):
-            bit = ((k[..., i // 32] >> (i % 32)) & 1).bool()
-            acc = torch.where(bit[..., None, None], self.add(acc, base), acc)
-            if i < 255:
-                base = self.double(base)
-        return acc
+        256 bits of canonical k, least significant first (kernel B's chain,
+        one launch; plain version `cuda_ec.scalar_mul_plain`)."""
+        return cuda_ec.ec_scalar_mul(self, P, k_mont)
 
     def generator_mul(self, k_mont):
         """[k]G for (..., 8) Montgomery scalars, G the generator: one mixed

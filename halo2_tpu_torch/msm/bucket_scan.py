@@ -21,6 +21,14 @@ the Pallas kernel in the reference.
 Affine stream elements are 18-word rows (x words, y words, infinity flag,
 pad), the stream MSM's row format; on the card a row gather moves 72 whole
 bytes, so the TPU's tile padding (`pad_width`) has no counterpart.
+
+Each level's `block` is chosen for the device (`block_for`): as many lanes
+as one wave of kernel 9 holds on the card (as many as the plain version
+runs on python ints on the CPU), and no fewer than MIN_BLOCK elements a
+lane, since shorter lanes mean more levels and more tails calls.  The block
+changes the order of the additions, so the projective words of a bucket sum,
+but not the group element.  The Horner combine over windows is one launch of
+kernel B's chain (`horner_windows`).
 """
 
 from __future__ import annotations
@@ -28,15 +36,27 @@ from __future__ import annotations
 import torch
 
 from .._build import I32, I64, P, Kernel, stream_of
-from ..curves.cuda_ec import ec_add_plain, ec_madd_plain
+from ..curves.cuda_ec import (check_words, ec_add_plain, ec_double_plain,
+                              ec_madd_plain)
 from ..curves.curve import Curve
+from ..fields import cuda_ops
 from ..fields.cuda_ops import NWORDS, SUB, binop_plain
 
 ROW_WORDS = 2 * NWORDS + 2        # x words, y words, infinity flag, pad
 SENTINEL_KEY = 1 << 30            # pads a stream: sorts after every bucket
 PROJECTIVE, AFFINE, PACKED = 0, 1, 2   # scan modes (csrc/scan.cu)
+# A level's lanes: one wave of kernel 9 on the H100 (132 SMs, 3 resident
+# blocks of 128 threads each); its lanes' blocks: MIN_BLOCK to MAX_BLOCK.
+# MIN_BLOCK: of blocks 8, 16, 32 and 64, a whole variable-base MSM of
+# 8,192 Vesta points ran fastest at 32 or 64 (within the host's noise) and
+# slowest at 8 (chip_smoke.py, PERF.md): shorter lanes add levels whose
+# host work costs more than the card saves; 32 fills more of the card.
+SCAN_LANES = 132 * 3 * 128
+MIN_BLOCK, MAX_BLOCK = 32, 64
 
 _scan_kernel = Kernel("h2_scan_level", [I32, I32, P, P, P, P, I32, I64, P])
+# curve, per-window sums, nw, c, out, n, stream
+_horner_kernel = Kernel("h2_ec_horner", [I32, P, I32, I32, P, I64, P])
 
 
 # ----------------------------------------------------------------------
@@ -142,15 +162,33 @@ def weighted_bucket_fold(curve: Curve, buckets):
     return curve.add(acc, W(C))
 
 
-def horner_windows(curve: Curve, per_window, c: int):
-    """sum_w per_window[w] 2^(c w) for (nw, 3, 8), high window first: c
-    doublings and one add per window."""
-    acc = curve.identity((), per_window.device)
+def horner_windows_plain(curve: Curve, per_window, c: int):
+    """Plain version of the Horner chain: sum_w per_window[w] 2^(c w) for
+    (nw, ..., 3, 8), high window first, from the identity: c doublings and
+    one add per window (kernel B's plain versions)."""
+    acc = curve.identity(tuple(per_window.shape[1:-2]), per_window.device)
     for w in range(per_window.shape[0] - 1, -1, -1):
         for _ in range(c):
-            acc = curve.double(acc)
-        acc = curve.add(acc, per_window[w])
+            acc = ec_double_plain(curve, acc)
+        acc = ec_add_plain(curve, acc, per_window[w])
     return acc
+
+
+def horner_windows(curve: Curve, per_window, c: int):
+    """sum_w per_window[w] 2^(c w) for (nw, ..., 3, 8): on the card one
+    launch of kernel B's Horner chain (csrc/ec.cu), the same doublings and
+    adds in the same order as `horner_windows_plain`."""
+    if per_window.device.type == "cpu":
+        return horner_windows_plain(curve, per_window, c)
+    check_words(per_window)
+    nw = per_window.shape[0]
+    per_window = per_window.contiguous()
+    out = torch.empty(per_window.shape[1:], dtype=torch.int32,
+                      device=per_window.device)
+    _horner_kernel.launch(curve.kernel_id, per_window.data_ptr(), nw, c,
+                          out.data_ptr(), out.numel() // (3 * NWORDS),
+                          stream_of(out))
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -241,6 +279,16 @@ def scan_level(curve: Curve, keys, pts, block: int, mode: int):
     return finals, lane_keys
 
 
+def block_for(m: int, device) -> int:
+    """The block of a scan level over m elements on `device`: lanes enough
+    to fill one wave of kernel 9 on the card (SCAN_LANES) or the plain
+    version's python-int batch on the CPU (cuda_ops.INT_POINTS), within
+    [MIN_BLOCK, MAX_BLOCK]."""
+    lanes = SCAN_LANES if torch.device(device).type == "cuda" else \
+        max(1, cuda_ops.INT_POINTS)
+    return max(MIN_BLOCK, min(MAX_BLOCK, -(-m // lanes)))
+
+
 # ----------------------------------------------------------------------
 # bucket reduction: sorted (key, point) stream -> per-key sums
 # ----------------------------------------------------------------------
@@ -280,19 +328,20 @@ def _pieces(curve: Curve, keys, pts, inf, block: int, n_keys: int,
     return scan_level(curve, lane_keys, g, block, PROJECTIVE)[0]
 
 
-def bucket_sums(curve: Curve, keys, rows, n_keys: int, block: int = 64,
+def bucket_sums(curve: Curve, keys, rows, n_keys: int, block: int = None,
                 packed: bool = False):
     """Sum points grouped by key.  keys (M,) int32 sorted non-decreasing:
     bucket ids in [0, n_keys), or (packed) 2 * bucket + sign with the
-    negation applied in the scan.  rows (M, 18) affine rows.  Returns
-    (n_keys, 3, 8) projective bucket sums."""
+    negation applied in the scan.  rows (M, 18) affine rows.  block: every
+    level's, or None for `block_for` per level.  Returns (n_keys, 3, 8)
+    projective bucket sums."""
     dev = keys.device
     total = curve.identity((n_keys,), dev)
     pts = rows
     inf = (rows[:, 2 * NWORDS] & 1) != 0
     affine = True
-    while keys.shape[0] > block:
-        pad = (-keys.shape[0]) % block
+    while keys.shape[0] > (blk := block or block_for(keys.shape[0], dev)):
+        pad = (-keys.shape[0]) % blk
         if pad:
             keys = torch.cat([keys, keys.new_full((pad,), SENTINEL_KEY)])
             fill = pack_affine_rows(curve.Fq.zeros((pad, 2), dev),
@@ -301,11 +350,11 @@ def bucket_sums(curve: Curve, keys, rows, n_keys: int, block: int = 64,
                 if affine else curve.identity((pad,), dev)
             pts = torch.cat([pts, fill])
             inf = torch.cat([inf, inf.new_ones(pad)])
-        tails = _pieces(curve, keys, pts, inf, block, n_keys, affine, packed,
+        tails = _pieces(curve, keys, pts, inf, blk, n_keys, affine, packed,
                         whole=False)
         total = curve.add(total, tails)
         mode = (PACKED if packed else AFFINE) if affine else PROJECTIVE
-        pts, keys = scan_level(curve, keys, pts, block, mode)
+        pts, keys = scan_level(curve, keys, pts, blk, mode)
         inf = curve.is_identity(pts) | (keys >= n_keys) | (keys < 0)
         affine = packed = False
     rest = _pieces(curve, keys, pts, inf, keys.shape[0], n_keys, affine,
@@ -318,10 +367,11 @@ def bucket_sums(curve: Curve, keys, rows, n_keys: int, block: int = 64,
 # ----------------------------------------------------------------------
 
 def msm_variable(curve: Curve, scalars_mont, points, c: int = 8,
-                 block: int = 64):
+                 block: int = None):
     """Variable-base MSM (the general `best_multiexp`): per-window bucket
-    spaces tagged into one key stream, one stable sort, the segmented scan,
-    then a weighted fold per window and a Horner combine over windows."""
+    spaces tagged into one key stream, one stable sort, the segmented scan
+    (block: every level's, or None for `block_for`), then a weighted fold
+    per window and a Horner combine over windows."""
     n = scalars_mont.shape[0]
     nw = n_windows_for(curve.Fr, c)
     nb_keys = (1 << (c - 1)) + 1

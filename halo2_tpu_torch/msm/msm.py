@@ -17,7 +17,7 @@ def naive_msm(curve: Curve, scalars_mont, points):
 
 
 def pippenger_msm(curve: Curve, scalars_mont, points, c: int = 8,
-                  block: int = 64):
+                  block: int = None):
     """Variable-base MSM via the windowed bucket method: (n, 8) scalars and
     (n, 3, 8) points -> one projective point (3, 8)."""
     return msm_variable(curve, scalars_mont, points, c, block)

@@ -5,6 +5,9 @@ own rates with them.
                        products and u32 multiply-adds in registers
   dma_gather_probe.py  kernel 13 (csrc/move.cu): a gather of table rows
   transpose_probe.py   kernels 14/15 (csrc/move.cu): (R, 16) <-> (16, R)
+  ec_census.py         kernels B and 9 (csrc/ec.cu, scan.cu): B's time
+                       per launch by batch size, its launches in an IPA
+                       prove by caller, kernel 9's calls in that prove
   card.py              the card's rates, CUDA-event timing and the bound
                        of a kernel's work, shared with bench.py and
                        chip_smoke.py

@@ -72,6 +72,21 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device time of fn() by torch.profiler: the time of the device
+    work it enqueues, without the host's dispatch, over reps calls after
+    one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / 1e3 / reps
+
+
 def timed(fn):
     """(fn(), its time on the card in ms), one run by CUDA events: for the
     plain versions, whose single run is both the reference output and the

@@ -143,19 +143,54 @@ def test_neg_eq_identity_normalize(operands):
     assert C.to_affine_ints(C.from_affine_coords(C.batch_normalize(P))) == ps
 
 
-def test_scalar_mul_matches_reference(operands):
-    ps, _ = operands
-    pts = [p for p in ps if p is not None][:4]
-    ks = [3, R_ORDER - 1, 0, 2 ** 200 + 7]
-    P, RP = _both(pts)
-    k = C.Fr.encode_ints(ks, "cpu")
-    ours = C.scalar_mul(P, k)
-    theirs = REF.scalar_mul(RP, REF.Fr.encode_ints(ks))
-    assert torch.equal(ours, limbs_from_jax(np.asarray(theirs)))
-    assert C.to_affine_ints(ours) == [host_msm(REF, [s], [p])
-                                      for s, p in zip(ks, pts)]
-    assert C.to_affine_ints(C.scalar_mul_int(P[:1], 5)) == \
-        [host_msm(REF, [5], [pts[0]])]
+CURVES = {"bn254": (C, REF), "vesta": (VESTA, REF_VESTA)}
+
+
+@pytest.mark.parametrize("scalars", ["per-lane", "one"])
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_scalar_mul_matches_reference(name, scalars, monkeypatch):
+    """The scalar-mul chain's plain version (kernel B's chain on the card)
+    on both plain paths, per-lane scalars 0, 1, p - 1 and a 201-bit one,
+    or one scalar p - 1 for every point, against the reference's
+    scalar_mul word for word and host_msm."""
+    curve, ref = CURVES[name]
+    order = curve.Fr.p
+    pts = [p for p in _operands(curve, ref)[0] if p is not None][:4]
+    ks = [0, 1, order - 1, 2 ** 200 + 7] if scalars == "per-lane" else \
+        [order - 1] * 4
+    P, RP = _both(pts, curve, ref)
+    k = curve.Fr.encode_ints(ks, "cpu")
+    theirs = limbs_from_jax(np.asarray(ref.scalar_mul(
+        RP, ref.Fr.encode_ints(ks))))
+    want = [host_msm(ref, [s], [p]) for s, p in zip(ks, pts)]
+    if scalars == "one":
+        k = k[0]
+    # the int64 limbs take seconds for 256 steps: one case runs them
+    paths = plain_paths(monkeypatch) if (name, scalars) == (
+        "bn254", "per-lane") else ["ints"]
+    for path in paths:
+        ours = curve.scalar_mul(P, k)
+        assert torch.equal(ours, theirs), path
+        assert curve.to_affine_ints(ours) == want, path
+    assert curve.to_affine_ints(curve.scalar_mul_int(P[:1], 5)) == \
+        [host_msm(ref, [5], [pts[0]])]
+
+
+def test_horner_plain_matches_host_ints(monkeypatch):
+    """The Horner chain's plain version (kernel B's chain on the card), on
+    both plain paths, against sum_w S_w 2^(c w) on host integers, with an
+    identity among the per-window sums."""
+    from halo2_tpu_torch.msm.bucket_scan import (horner_windows,
+                                                 horner_windows_plain)
+    nw, c = 5, 6
+    sums = _points(nw, 7)
+    sums[nw - 1] = None
+    S = C.double(C.from_affine_ints(sums, "cpu"))
+    want = [host_msm(REF, [2 << (c * w) for w in range(nw)], sums)]
+    for path in plain_paths(monkeypatch):
+        ours = horner_windows_plain(C, S, c)
+        assert C.to_affine_ints(ours[None]) == want, path
+        assert torch.equal(horner_windows(C, S, c), ours), path
 
 
 def test_generator_mul_matches_reference():

@@ -1,8 +1,8 @@
-"""Kernels A-D, 8-15 and the ordering pass of halo2_tpu_torch (BN254 and
-Pasta instances) against their plain PyTorch versions on a CUDA device,
-and GPU proofs (KZG and IPA) against CPU proofs.  Every test needs the
-card and skips without one.  The file imports nothing of JAX, so on a
-machine without JAX run it as
+"""Kernels A-D, 8-15, kernel B's chains and the ordering pass of
+halo2_tpu_torch (BN254 and Pasta instances) against their plain PyTorch
+versions on a CUDA device, and GPU proofs (KZG and IPA) against CPU
+proofs.  Every test needs the card and skips without one.  The file
+imports nothing of JAX, so on a machine without JAX run it as
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
@@ -87,6 +87,31 @@ def test_kernel_b_matches_plain(C, cuda):
     pts = C.to_affine_ints(P[:40])
     assert C.to_affine_ints(C.double(P[:40])) == \
         [host_msm(C, [2], [p]) for p in pts]
+
+
+@pytest.mark.parametrize("C", [C, PALLAS, VESTA],
+                         ids=["bn254", "pallas", "vesta"])
+def test_kernel_b_chains_match_plain(C, cuda):
+    """Kernel B's two chains against their plain versions: scalar mul
+    with one scalar for all points and with per-lane scalars (0, 1, p - 1
+    among them), and the Horner combine at the MSMs' window shapes."""
+    n = 256
+    P = C.double(C.generator_mul(C.Fr.encode_ints(_ints(C.Fr.p, n - 3, 13),
+                                                  cuda)))
+    P[9] = C.identity((), cuda)
+    ks = C.Fr.encode_ints(_ints(C.Fr.p, n - 3, 14), cuda)
+    for k in (ks, ks[4], ks[:3]):
+        Pk = P[:3] if k.shape[0] == 3 else P
+        assert torch.equal(C.scalar_mul(Pk, k),
+                           cuda_ec.scalar_mul_plain(C, Pk, k))
+    pts = C.to_affine_ints(P[:8])
+    vals = C.Fr.decode_ints(ks[:8])
+    assert C.to_affine_ints(C.scalar_mul(P[:8], ks[:8])) == \
+        [host_msm(C, [v], [p]) for v, p in zip(vals, pts)]
+    for nw, c in ((43, 6), (33, 8), (65, 4)):
+        S = P[:nw]
+        assert torch.equal(bs.horner_windows(C, S, c),
+                           bs.horner_windows_plain(C, S, c))
 
 
 @pytest.mark.parametrize("F", [BN254_FR, PASTA_FP, PASTA_FQ],
@@ -175,10 +200,11 @@ def test_kernel_9_matches_plain(C, cuda):
         for mode, data, k in ((bs.PACKED, rows, keys),
                               (bs.AFFINE, rows, keys >> 1),
                               (bs.PROJECTIVE, pts, keys >> 1)):
-            got = bs.scan_level(C, k, data, 64, mode)
-            want = bs.scan_level_plain(C, k, data, 64, mode)
-            assert torch.equal(got[0], want[0])
-            assert torch.equal(got[1], want[1])
+            for block in (64, bs.MIN_BLOCK, 8):
+                got = bs.scan_level(C, k, data, block, mode)
+                want = bs.scan_level_plain(C, k, data, block, mode)
+                assert torch.equal(got[0], want[0]), block
+                assert torch.equal(got[1], want[1]), block
     vals = _ints(C.Fr.p, n - 3, 12)
     s = C.Fr.encode_ints(vals, cuda)
     assert C.to_affine_ints(msm(C, s, pts)[None]) == \

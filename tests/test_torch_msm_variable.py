@@ -155,6 +155,50 @@ def test_variable_base_msm_matches_reference(bases, n):
     assert got == REF.to_affine_ints(theirs[None])
 
 
+_REF_MSM = {}
+
+
+@pytest.mark.parametrize("block", ["rule", 64])
+def test_msm_variable_block_matches_reference(bases, block):
+    """msm_variable at the block rule (block_for per level: on the CPU the
+    python-int batch, then MIN_BLOCK; on the card one wave of lanes) and at
+    one fixed block of 64 against the reference's msm_variable after
+    normalisation, with the scalars of the n = 256 case above (its
+    reference result is reused)."""
+    from halo2_tpu_torch.msm import bucket_scan as bs
+    ref_pts, pts = bases
+    n = 256
+    vals = _scalars(n, 30 + n, "random")
+    vals[:6] = [0, 0, P_ORDER - 1, 1, vals[7], vals[7]]
+    if n not in _REF_MSM:
+        _REF_MSM[n] = REF.to_affine_ints(ref_scan.msm_variable(
+            REF, REF.Fr.encode_ints(vals), ref_pts[:n], 4, 64)[None])
+    m = bs.n_windows_for(C.Fr, 4) * n
+    assert bs.block_for(m, "cuda") == bs.MIN_BLOCK
+    assert bs.block_for(48 * bs.SCAN_LANES - 1, "cuda") == 48
+    assert bs.block_for(48 * cuda_ops.INT_POINTS, "cpu") == 48
+    assert bs.block_for(1 << 40, "cpu") == bs.MAX_BLOCK
+    levels = []
+    orig = bs.scan_level
+
+    def counting(curve, keys, p, blk, mode):
+        levels.append(blk)
+        return orig(curve, keys, p, blk, mode)
+
+    bs.scan_level = counting
+    try:
+        got = bs.msm_variable(C, C.Fr.encode_ints(vals, "cpu"), pts[:n], 4,
+                              None if block == "rule" else block)
+    finally:
+        bs.scan_level = orig
+    assert C.to_affine_ints(got[None]) == _REF_MSM[n]
+    if block == "rule":
+        assert levels[0] == bs.block_for(m, "cpu")
+        assert bs.MIN_BLOCK in levels
+    else:
+        assert set(levels[:-1]) == {64}
+
+
 def test_variable_base_msm_vesta():
     """msm() over Vesta, whose 255-bit scalars give 65 windows at c = 4."""
     from halo2_tpu_torch.curves import VESTA

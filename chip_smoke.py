@@ -25,10 +25,18 @@ equal and one-bucket scalars; both are timed on random scalars and on the
 scalars of a real commitment of one more prove, whose nonzero shares are
 printed with each path's counts of elements streamed and added; the
 build's registers, spills, occupancy and SASS multiplies by kind are
-printed first.  On the IPA path every kernel D and kernel 9 call of one
-more prove is recorded and held against its plain version on its own
-inputs.  Kernel B's two chains (the double-and-add scalar
-multiplication and the Horner combine, one launch each) are held against
+printed first.  Kernel C (every pass of the four-step NTT) is held against
+its plain version on every pass of forward and coset transforms at 2^18,
+2^20 (BN254) and 2^14, 2^16 (Pasta), whole transforms against the CPU at
+2^11 and 2^12 (forward, inverse, coset both ways), and on each main path
+the first pass of each shape (field, log m, column dims with their
+strides, row limits, twiddle size and flags) is recorded with every
+column, so in the path's block layout, and held against its plain
+version on its own inputs after the path.  On the IPA path
+every kernel D and kernel 9 call of one more prove is recorded and held
+against its plain version on its own inputs.  Kernel B's two chains (the
+double-and-add scalar multiplication and the Horner combine, one launch
+each) are held against
 their plain versions at the IPA fold's shape (8,192 Vesta points, one
 scalar), with per-lane BN254 scalars including 0, 1 and p - 1, and at the
 Horner shapes of the k=20 unbaked MSM (BN254, 43 windows of 6 bits) and
@@ -284,55 +292,185 @@ def check_ec(torch, dev, G, m: int, seed: int, bound, tag: str) -> dict:
     return out
 
 
-def ntt_bound(bound, F, tag, lm, rows):
-    """Base NTT of 2^lm points on `rows` rows: bytes in + out + twiddles;
-    (lm - 1) m / 2 Montgomery products per row (the last stage has none),
-    each at kernel A's multiply count."""
+def c_products(log_m: int) -> int:
+    """Carry-chain products of one column of a plain kernel-C pass (no
+    factors): a radix-4 step of round t does four, or one (d1's) where its
+    stage twiddles are 1 (l = j0 >> t = 0); an odd log_m's last radix-2
+    stage does none."""
+    q4, total, t = (1 << log_m) >> 2, 0, 0
+    while t + 1 < log_m:
+        ones = min(q4, 1 << t)               # j0 with l = 0
+        total += 4 * (q4 - ones) + ones
+        t += 2
+    return total
+
+
+def c_per_product(bound, tag) -> float:
+    """Kernel C's SASS multiplier instructions per product (and so per
+    butterfly with a twiddle): its radix-4 round loop's, over the round's
+    four products."""
+    from halo2_tpu_torch.ntt.fused import BUTTERFLIES_PER_ROUND
+    from halo2_tpu_torch.tools import card
+    return sum(card.loop_multiplies(("k_ntt", tag)).values()) \
+        / BUTTERFLIES_PER_ROUND
+
+
+def least_multiplies(F) -> int:
+    """Multiplier instructions an 8-word Montgomery product needs at least:
+    a b's 64 word products, then per word of the reduction one for its
+    quotient and one per nonzero word of p (Pasta's p has three zero
+    words)."""
+    nonzero = sum(1 for i in range(8) if (F.p >> (32 * i)) & 0xFFFFFFFF)
+    return 64 + 8 * (1 + nonzero)
+
+
+def ntt_bound(bound, F, tag, lm, cols):
+    """One plain pass of kernel C, 2^lm points on `cols` columns: bytes in +
+    out + the m/2 powers; the products this pass does (`c_products`) at
+    C's own multiplier instructions per product.  `least_bound_ms`: the
+    same at the product's least multiplies (`least_multiplies`), as C's
+    own count includes what ptxas left unfused."""
     m = 1 << lm
-    return bound(2 * 32 * m * rows + 32 * lm * m // 2,
-                 (lm - 1) * m // 2 * rows * bound.per_elem(
-                     "k_field_binop", tag, "Li0E"))
+    nbytes = 2 * 32 * m * cols + 32 * max(m // 2, 1)
+    b = bound(nbytes, c_products(lm) * cols * c_per_product(bound, tag))
+    b["least_bound_ms"] = bound(
+        nbytes, c_products(lm) * cols * least_multiplies(F))["bound_ms"]
+    return b
+
+
+def c_shape(F, p) -> tuple:
+    """A kernel-C pass's whole shape: field, log m, column dims with their
+    strides, j, row limits, the twiddle's (dim, log n, log lo) and flags;
+    the column count it gives decides the block layout."""
+    return (F.name, p.log_m, tuple(p.dims), tuple(p.j), p.src_rows,
+            p.dst_rows, None if p.twiddle is None else p.twiddle[:3],
+            p.flags())
+
+
+@contextlib.contextmanager
+def c_recorder(torch):
+    """While the block runs, keep the first kernel-C pass of each shape
+    (`c_shape`), every column of it: its spec, with a host copy of the
+    whole range of src it reads, for `check_c_calls` after the path (whose
+    launches then count in no path)."""
+    from dataclasses import replace
+
+    from halo2_tpu_torch.ntt import fused
+    seen = {}
+    orig = fused.base_ntt
+
+    def wrapper(F, p):
+        key = c_shape(F, p)
+        if key not in seen:
+            m = 1 << p.log_m
+            hi = sum((d[0] - 1) * d[1] for d in p.dims) + (m - 1) * p.j[0] + 1
+            # the host keeps the copy, and no reference to the path's
+            # buffers, so the path's peak memory is its own
+            seen[key] = (F, replace(p, src=p.src.reshape(-1, 8)[:hi].cpu(),
+                                    dst=None))
+        return orig(F, p)
+
+    fused.base_ntt = wrapper
+    try:
+        yield seen
+    finally:
+        fused.base_ntt = orig
+
+
+def check_c_calls(torch, tag, seen) -> int:
+    """Each recorded pass, kernel against plain version on its own inputs
+    and all its columns (so in the path's block layout) into zeroed
+    outputs (the zeros show the rows a truncating pass must not write)."""
+    from dataclasses import replace
+
+    from halo2_tpu_torch.ntt.fused import (_log_cols, base_ntt,
+                                           base_ntt_plain, sm_count)
+    err, t0, done = 0, time.time(), []
+    for key, (F, p) in sorted(seen.items(), key=lambda kv: str(kv[0])):
+        m = 1 << p.log_m
+        hi = sum((d[0] - 1) * d[3] for d in p.dims) + (m - 1) * p.j[2] + 1
+        src = p.src.to(p.powers.device)
+        outs = [torch.zeros(hi, 8, dtype=torch.int32, device=src.device)
+                for _ in range(2)]
+        got = base_ntt(F, replace(p, src=src, dst=outs[0]))
+        want = base_ntt_plain(F, replace(p, src=src, dst=outs[1]),
+                              chunk=1 << 19)
+        flags = "+".join(key[-1]) or "plain"
+        per_block = 1 << _log_cols(p.log_m, p.cols, sm_count(src.device.index))
+        err = max(err, expect_equal(
+            torch, f"{tag}: kernel C 2^{p.log_m} {F.name} {flags} "
+            f"{p.cols} columns", got, want))
+        done.append(f"{F.name} 2^{p.log_m} {flags} {p.cols} cols "
+                    f"{per_block}/block")
+        del src, outs, got, want
+    log(f"[{tag}] kernel C equal to plain, every column, on the first pass "
+        f"of each of {len(seen)} shapes ({time.time() - t0:.1f} s): "
+        + "; ".join(done))
+    return err
 
 
 def check_ntt(torch, dev, F, log_ns, seed: int, bound, tag: str):
-    """Kernel C inside transforms of 2^log_n for each log_n: both base
-    calls of the four-step equal to plain, whole transforms invertible and
-    equal to the CPU path at 2^11."""
+    """Kernel C inside transforms of 2^log_n for each log_n: every pass of
+    a forward and of the coset pair of a domain extended to 2^log_n held
+    against its plain version, inverse(forward(x)) == x; forward, inverse
+    and the coset pair equal to the CPU path at 2^11 and 2^12; one plain
+    pass of 2^l1 points on 2^l1 columns timed (l1: the first split's
+    base), its device time and the whole forward at the last log_n."""
     from halo2_tpu_torch.ntt import get_ntt
-    from halo2_tpu_torch.ntt.fused import base_ntt, base_ntt_plain
+    from halo2_tpu_torch.ntt.fused import (base_ntt, base_ntt_plain,
+                                           column_pass)
+    from halo2_tpu_torch.poly import EvaluationDomain
     from halo2_tpu_torch.tools import card
-    err, timing = 0, None
+    err = 0
     for log_n in log_ns:
         ntt = get_ntt(F, log_n, dev)
+        dom = EvaluationDomain(F, 5, log_n - 2, dev)
         x = random_elems(torch, F, 1 << log_n, seed + log_n, dev)
-        _, l1, l2 = ntt._plan[log_n]
-        for lm, shape in ((l1, (1, 1 << l1, 1 << l2, 8)),
-                          (l2, (1, 1 << l2, 1 << l1, 8))):
-            xb = x.reshape(shape)
-            table = ntt._tables[(lm, False, "base")]
-            err = max(err, expect_equal(
-                torch, f"ntt base 2^{lm} in 2^{log_n} {F.name}",
-                base_ntt(F, xb, table, lm), base_ntt_plain(F, xb, table, lm)))
-            timing = (xb, table, lm)
-        back = ntt.inverse(ntt.forward(x))
-        if max_err(torch, back, x) != 0:
+        with c_recorder(torch) as seen:
+            ntt.forward(x)
+            dom.extended_to_coeff(dom.coeff_to_extended(x[: dom.n]))
+        err = max(err, check_c_calls(torch, f"ntt 2^{log_n} {F.name}", seen))
+        if max_err(torch, ntt.inverse(ntt.forward(x)), x) != 0:
             raise AssertionError(f"ntt 2^{log_n}: inverse(forward(x)) != x")
-    small = random_elems(torch, F, 1 << 12, seed, dev).reshape(2, 1 << 11, 8)
-    err = max(err, expect_equal(
-        torch, f"ntt 2^11 GPU vs CPU {F.name}",
-        get_ntt(F, 11, dev).forward(small).cpu(),
-        get_ntt(F, 11, "cpu").forward(small.cpu())))
-    xb, table, lm = timing
-    ms = card.cuda_ms(lambda: base_ntt(F, xb, table, lm), 10)
-    plain = card.timed(lambda: base_ntt_plain(F, xb, table, lm))[1]
-    b_ = ntt_bound(bound, F, tag, lm, xb.shape[2])
+    for log_n in (11, 12):
+        a = random_elems(torch, F, 2 << log_n, seed, dev).reshape(
+            2, 1 << log_n, 8)
+        gpu, cpu = get_ntt(F, log_n, dev), get_ntt(F, log_n, "cpu")
+        dg = EvaluationDomain(F, 5, log_n - 2, dev)
+        dc = EvaluationDomain(F, 5, log_n - 2, "cpu")
+        for what, got, want in (
+                ("forward", lambda: gpu.forward(a), lambda: cpu.forward(
+                    a.cpu())),
+                ("inverse", lambda: gpu.inverse(a), lambda: cpu.inverse(
+                    a.cpu())),
+                ("coset forward", lambda: dg.coeff_to_extended(a[:, :dg.n]),
+                 lambda: dc.coeff_to_extended(a[:, :dc.n].cpu())),
+                ("coset inverse", lambda: dg.extended_to_coeff(a),
+                 lambda: dc.extended_to_coeff(a.cpu()))):
+            err = max(err, expect_equal(
+                torch, f"ntt 2^{log_n} {what} GPU vs CPU {F.name}",
+                got().cpu(), want()))
+    lm = get_ntt(F, log_ns[-1], dev)._plan[log_ns[-1]][1]
+    ntt = get_ntt(F, 2 * lm, dev)
+    xb = random_elems(torch, F, 1 << (2 * lm), seed, dev).reshape(
+        1, 1 << lm, 1 << lm, 8)
+    spec = column_pass(ntt, xb, lm, False)
+    ms = card.cuda_ms(lambda: base_ntt(F, spec), 10)
+    dev_ms = card.device_ms(lambda: base_ntt(F, spec), 10)
+    plain = card.timed(lambda: base_ntt_plain(F, spec))[1]
+    b_ = ntt_bound(bound, F, tag, lm, 1 << lm)
+    b_["device_ms"] = dev_ms
     ntt = get_ntt(F, log_ns[-1], dev)
     x = random_elems(torch, F, 1 << log_ns[-1], seed, dev)
     full = card.cuda_ms(lambda: ntt.forward(x), 3)
-    log(f"[kernel C] {F.name} base NTT in 2^{log_ns} transforms: equal; "
-        f"base 2^{lm} x 2^{xb.shape[2]} {ms:.3f} ms vs plain {plain:.1f} ms; "
-        f"bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}); whole forward "
-        f"2^{log_ns[-1]} {full:.3f} ms")
+    log(f"[kernel C] {F.name} passes of 2^{log_ns} transforms and their "
+        f"coset pairs equal to plain; 2^11, 2^12 GPU == CPU; pass 2^{lm} x "
+        f"2^{lm} {ms:.4f} ms (device {dev_ms:.4f}) vs plain {plain:.1f} ms; "
+        f"bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}, "
+        f"{c_per_product(bound, tag):.1f} multiplies a product; "
+        f"{b_['least_bound_ms']:.4f} ms at the least {least_multiplies(F)}); "
+        f"whole "
+        f"forward 2^{log_ns[-1]} {full:.3f} ms")
     return err, ms, plain, b_
 
 
@@ -785,7 +923,7 @@ def run_path(torch, tag, counts, need, body):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     sm.reset_stream_counters()
-    with ec_census.caller_census() as by_caller:
+    with ec_census.caller_census() as by_caller, c_recorder(torch) as seen:
         out = body()
     torch.cuda.synchronize()
     c = _build.launch_counts()
@@ -801,6 +939,8 @@ def run_path(torch, tag, counts, need, body):
     idle = [k for k in need if c.get(k, 0) <= 0]
     if idle:
         raise AssertionError(f"{tag}: kernels not launched: {idle}")
+    if seen:
+        check_c_calls(torch, tag, seen)
     return out
 
 
@@ -946,9 +1086,9 @@ def profile_prove(torch, tag, params, pk, circuit, inst, prove_kw=None):
         f"{1 - busy_us / 1e3 / wall_ms:.3f}, {len(spans)} device kernels; "
         f"top device time: {kernels}")
     named = []
-    for prefix in ("k_order_", "k_stream_bucket", "k_ec_add", "k_ec_madd",
-                   "k_ec_double", "k_ec_scalar_mul", "k_ec_horner",
-                   "k_scan_level", "k_field_binop"):
+    for prefix in ("k_ntt", "k_order_", "k_stream_bucket", "k_ec_add",
+                   "k_ec_madd", "k_ec_double", "k_ec_scalar_mul",
+                   "k_ec_horner", "k_scan_level", "k_field_binop"):
         hits = [e for e in averages if prefix in e.key]
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         named.append(f"{prefix}* {ms:.1f} ms x{sum(e.count for e in hits)}")
@@ -969,9 +1109,14 @@ def log_stream_build(torch):
     from halo2_tpu_torch.msm import stream_msm as sm
     from halo2_tpu_torch.tools import card
     for fn, r in sorted(card.ptxas_report().items()):
-        if any(k in fn for k in ("k_stream_bucket", "k_order_",
+        if any(k in fn for k in ("k_stream_bucket", "k_order_", "k_ntt",
                                  "k_mont_repeatI7Bn254Fr", "k_u32")):
             log(f"[ptxas] {fn}: {r}")
+    for fn, r in sorted(card.sass_report().items()):
+        if "k_ntt" in fn:
+            log(f"[sass] kernel C {fn}: {r['kinds']}; loops "
+                + "; ".join(f"{lp['start']:x}-{lp['end']:x} {lp['kinds']}"
+                            for lp in r["loops"]))
     for curve, tag in ((0, "Bn254G1"), (1, "Pallas"), (2, "Vesta")):
         for per_window in (False, True):
             log(f"[occupancy] {'kernel 8' if per_window else 'kernel D'} "
@@ -1477,7 +1622,7 @@ def check_probes(torch, dev, bound, results):
 
 U32_RATE = ("u32_mul_repeat", "msm_order", "stream_bucket",
             "stream_bucket_windows", "ec_add", "ec_madd", "ec_double",
-            "ec_scalar_mul", "ec_horner", "scan_level")
+            "ec_scalar_mul", "ec_horner", "scan_level", "ntt_base")
 
 
 def shares_at_measured_rates(results):
@@ -1485,7 +1630,7 @@ def shares_at_measured_rates(results):
     `bound_ms` of the kernels line) and against the same bound at the rate
     the card reached in this run (`bound_ms_measured`): kernel 10's for
     every kernel made of its Montgomery product, kernel 12's u32 rate for
-    kernel 12, the ordering pass and kernels B, D, 8 and 9, whose
+    kernel 12, the ordering pass and kernels B, C, D, 8 and 9, whose
     carry-chain product is not kernel 10's.  A chain's critical path does
     not depend on the rate and stays in both."""
     from halo2_tpu_torch.tools import card

@@ -4,9 +4,9 @@
 // a * 2^256 mod p (the same R = 2^256 as the JAX reference), canonical < p.
 // Field ops are Montgomery multiplication over 8 x 32-bit limbs, modular add
 // and sub.  Two products return the same canonical words: fe_mul below, CIOS
-// in C with 64-bit products (kernels A, C and 10), and mont_chain.cuh's
-// fe_mul_chain, PTX carry chains, which every curve body uses (kernels B, D,
-// 8 and 9).  The curve bodies are the Renes-Costello-Batina complete formulas
+// in C with 64-bit products (kernels A and 10), and mont_chain.cuh's
+// fe_mul_chain, PTX carry chains, which every curve body (kernels B, D, 8
+// and 9) and kernel C use.  The curve bodies are the Renes-Costello-Batina complete formulas
 // (eprint 2015/1060, Algs 7-9, a = 0) in exactly the operation order of the
 // JAX reference's curves/pallas_ec.py, so a kernel and its plain PyTorch
 // version produce identical projective coordinates.

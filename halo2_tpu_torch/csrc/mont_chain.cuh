@@ -1,5 +1,6 @@
 // Montgomery product as PTX carry chains: the product of every curve body
-// in arith.cuh (kernels B, D, 8 and 9).
+// in arith.cuh (kernels B, D, 8 and 9) and of kernel C, whose sums and
+// differences are the carry chains at the end of this file.
 //
 // fe_mul_chain<M>(a, b) = a b 2^-256 mod p for canonical a, b < p, returned
 // canonical (< p): the same words as arith.cuh's fe_mul.  It is CIOS over 8
@@ -247,5 +248,39 @@ __device__ __forceinline__ Fe fe_mul_chain(const Fe& a, const Fe& b) {
   const uint32_t keep = subc(0, 0);      // all ones when t < p
 #pragma unroll
   for (int j = 0; j < 8; j++) d.w[j] = keep ? t[j] : d.w[j];
+  return d;
+}
+
+// a + b mod p and a - b mod p for canonical a, b < p < 2^255 as carry
+// chains: the sum or difference, then p subtracted (kept unless that
+// borrows) or added back (when the difference borrowed).
+template <class M>
+__device__ __forceinline__ Fe fe_add_chain(const Fe& a, const Fe& b) {
+  uint32_t s[8];
+  s[0] = add_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int j = 1; j < 7; j++) s[j] = addc_cc(a.w[j], b.w[j]);
+  s[7] = addc(a.w[7], b.w[7]);
+  Fe d;
+  d.w[0] = sub_cc(s[0], M::p(0));
+#pragma unroll
+  for (int j = 1; j < 8; j++) d.w[j] = subc_cc(s[j], M::p(j));
+  const uint32_t keep = subc(0, 0);      // all ones when s < p
+#pragma unroll
+  for (int j = 0; j < 8; j++) d.w[j] = keep ? s[j] : d.w[j];
+  return d;
+}
+
+template <class M>
+__device__ __forceinline__ Fe fe_sub_chain(const Fe& a, const Fe& b) {
+  Fe d;
+  d.w[0] = sub_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int j = 1; j < 8; j++) d.w[j] = subc_cc(a.w[j], b.w[j]);
+  const uint32_t back = subc(0, 0);      // all ones when a < b
+  d.w[0] = add_cc(d.w[0], M::p(0) & back);
+#pragma unroll
+  for (int j = 1; j < 7; j++) d.w[j] = addc_cc(d.w[j], M::p(j) & back);
+  d.w[7] = addc(d.w[7], M::p(7) & back);
   return d;
 }

@@ -14,12 +14,12 @@ from ..frontend.expression import Rotation
 from ..ntt import get_ntt
 from .poly import COEFF, EXTENDED, LAGRANGE, Poly, take
 
-# Bytes of transform input per dispatch.  The four-step keeps about five
-# input-sized tensors live (input, twiddled copy, transpose, two base
-# outputs), so 1 GiB of input peaks near 5 GiB — a few percent of the
-# H100's 80 GB beside the k=18 prover state (~3 GB with both baked MSM
-# tables), while letting the 24 stacked fixed + sigma columns of
-# plonk_api at k=18 (ext_n = 2^20, 32 MiB a column) go in one dispatch.
+# Bytes of transform output per dispatch.  A transform keeps its input, its
+# output and one scratch tensor of the output's size per split level live
+# (two at 2^21 and above), so 1 GiB of output peaks near 3-4 GiB beside the
+# k=18 prover state (~3 GB with both baked MSM tables), while letting the 24
+# stacked fixed + sigma columns of plonk_api at k=18 (ext_n = 2^20, 32 MiB a
+# column) go in one dispatch.
 NTT_CHUNK_BYTES = 1 << 30
 
 
@@ -62,77 +62,69 @@ class EvaluationDomain:
             [pow(t, p - 2, p) for t in t_evals], device)
         self._ntt = get_ntt(F, k, device)
         self._ntt_ext = get_ntt(F, extended_k, device)
-        self._zeta_fwd = F.encode_ints([1, self.g_coset, self.g_coset_inv],
-                                       device)
-        self._zeta_inv = F.encode_ints([1, self.g_coset_inv, self.g_coset],
-                                       device)
+        # the coset patterns zeta^(i mod 3) and, with 1/extended_n,
+        # zeta^-(i mod 3), as python ints: kernel C multiplies by them on
+        # its first pass's load and its last pass's store
+        self._zeta_fwd = (1, self.g_coset, self.g_coset_inv)
+        ext_n_inv = pow(self.extended_n, p - 2, p)
+        self._zeta_inv = tuple(ext_n_inv * z % p
+                               for z in (1, self.g_coset_inv, self.g_coset))
 
     # ------------------------------------------------------------------
     # transforms (batched over leading dims; polynomial axis -2)
     # ------------------------------------------------------------------
 
     def _chunk_batched(self, fn, a, out_rows: int):
-        """Apply `fn` over the batch dims of `a` in chunks of at most
-        NTT_CHUNK_BYTES of output columns."""
-        if a.dim() <= 2:
-            return fn(a)
-        per_col = out_rows * NWORDS * 4
-        batch = 1
-        for d in a.shape[:-2]:
-            batch *= d
-        chunk = max(1, NTT_CHUNK_BYTES // per_col)
-        if batch <= chunk:
-            return fn(a)
+        """One output tensor (..., out_rows, 8) for `a`'s batch dims, filled
+        by fn(chunk, out_chunk) over chunks of at most NTT_CHUNK_BYTES of
+        output columns."""
+        batch = tuple(a.shape[:-2])
+        out = torch.empty(batch + (out_rows, NWORDS), dtype=torch.int32,
+                          device=a.device)
         flat = a.reshape((-1,) + tuple(a.shape[-2:]))
-        out = torch.cat([fn(flat[i:i + chunk])
-                         for i in range(0, batch, chunk)], dim=0)
-        return out.reshape(tuple(a.shape[:-2]) + tuple(out.shape[-2:]))
+        flat_out = out.view(-1, out_rows, NWORDS)
+        chunk = max(1, NTT_CHUNK_BYTES // (out_rows * NWORDS * 4))
+        for i in range(0, flat.shape[0], chunk):
+            fn(flat[i:i + chunk], flat_out[i:i + chunk])
+        return out
 
     def lagrange_to_coeff(self, a):
         a, typed = take(a, LAGRANGE, "lagrange_to_coeff")
         assert a.shape[-2] == self.n
-        out = self._chunk_batched(self._ntt.inverse, a, self.n)
+        out = self._chunk_batched(
+            lambda c, o: self._ntt._transform(c, True, out=o), a, self.n)
         return Poly.coeff(out) if typed else out
 
     def coeff_to_lagrange(self, a):
         a, typed = take(a, COEFF, "coeff_to_lagrange")
         assert a.shape[-2] == self.n
-        out = self._chunk_batched(self._ntt.forward, a, self.n)
+        out = self._chunk_batched(
+            lambda c, o: self._ntt._transform(c, False, out=o), a, self.n)
         return Poly.lagrange(out) if typed else out
-
-    def _distribute_zeta(self, a, pattern):
-        n = a.shape[-2]
-        scal = pattern.repeat((n + 2) // 3, 1)[:n]
-        return self.F.mul(a, scal)
 
     def coeff_to_extended(self, a):
         """Coefficients -> evaluations over the zeta-coset extended domain
-        (domain.rs:230-244)."""
+        (domain.rs:230-244): one transform whose first pass multiplies by
+        the coset pattern and reads the rows from n on as zero."""
         a, typed = take(a, COEFF, "coeff_to_extended")
         assert a.shape[-2] == self.n
-
-        def one_chunk(c):
-            c = self._distribute_zeta(c, self._zeta_fwd)
-            pad = torch.zeros(tuple(c.shape[:-2]) +
-                              (self.extended_n - self.n, NWORDS),
-                              dtype=c.dtype, device=c.device)
-            return self._ntt_ext.forward(torch.cat([c, pad], dim=-2))
-
-        out = self._chunk_batched(one_chunk, a, self.extended_n)
+        out = self._chunk_batched(
+            lambda c, o: self._ntt_ext._transform(c, False,
+                                                  load=self._zeta_fwd, out=o),
+            a, self.extended_n)
         return Poly.extended(out) if typed else out
 
     def extended_to_coeff(self, a):
         """Extended coset evaluations -> coefficients, truncated to
-        n * quotient_poly_degree (domain.rs:271-293)."""
+        n * quotient_poly_degree (domain.rs:271-293): one inverse transform
+        whose last pass multiplies by 1/extended_n times the inverse coset
+        pattern and writes only the rows kept."""
         a, typed = take(a, EXTENDED, "extended_to_coeff")
         assert a.shape[-2] == self.extended_n
-
-        def one_chunk(c):
-            c = self._distribute_zeta(self._ntt_ext.inverse(c),
-                                      self._zeta_inv)
-            return c[..., : self.n * self.quotient_poly_degree, :]
-
-        out = self._chunk_batched(one_chunk, a, self.extended_n)
+        rows = self.n * self.quotient_poly_degree
+        out = self._chunk_batched(
+            lambda c, o: self._ntt_ext._transform(
+                c, True, store=self._zeta_inv, rows=rows, out=o), a, rows)
         return Poly.coeff(out) if typed else out
 
     def divide_by_vanishing_poly(self, a):

@@ -8,6 +8,10 @@ own rates with them.
   ec_census.py         kernels B and 9 (csrc/ec.cu, scan.cu): B's time
                        per launch by batch size, its launches in an IPA
                        prove by caller, kernel 9's calls in that prove
+  ntt_census.py        kernel C (csrc/ntt.cu) and the transforms: C's
+                       build and pass times, whole transforms, and per
+                       path every transform, C launch and the device time
+                       inside the transforms
   card.py              the card's rates, CUDA-event timing and the bound
                        of a kernel's work, shared with bench.py and
                        chip_smoke.py

@@ -7,6 +7,7 @@ imports nothing of JAX, so on a machine without JAX run it as
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import random
 
 import numpy as np
@@ -24,8 +25,10 @@ from halo2_tpu_torch.msm import StreamMSM, msm, naive_msm
 from halo2_tpu_torch.msm import bucket_scan as bs
 from halo2_tpu_torch.msm import stream_msm as sm
 from halo2_tpu_torch.msm.host_msm import host_msm
-from halo2_tpu_torch.ntt import get_ntt
-from halo2_tpu_torch.ntt.fused import base_ntt, base_ntt_plain, stage_table
+from halo2_tpu_torch.ntt import fused, get_ntt
+from halo2_tpu_torch.ntt.fused import (BIG, FusedNTT, NttPass, base_ntt,
+                                       base_ntt_plain)
+from halo2_tpu_torch.poly import EvaluationDomain
 from halo2_tpu_torch.tools import alu_probe, dma_gather_probe, transpose_probe
 
 # The plain versions run many small tensor ops: one thread per worker
@@ -114,24 +117,117 @@ def test_kernel_b_chains_match_plain(C, cuda):
                            bs.horner_windows_plain(C, S, c))
 
 
+C_FLAGS = ("load", "pad", "store", "truncate", "twiddle", "transpose")
+
+
+def _words_below_p(F, n: int, seed: int, dev) -> torch.Tensor:
+    """n random canonical elements as (n, 8) words, made without python
+    ints: the top word below p's."""
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, 8),
+                                             dtype=np.uint64)
+    w[:, 7] %= F.p >> 224
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+
+
+def _c_case(F, log_m: int, flags, dev, seed: int, outer=2, inner=3):
+    """Kernel C's pass along axis 1 of (outer, m, inner) words with the
+    factors and masks named in `flags` (see NttPass); "transpose" writes
+    (outer, inner, m).  The output starts as zeros."""
+    m, p = 1 << log_m, F.p
+    if outer * m * inner > 1 << 12:
+        x = _words_below_p(F, outer * m * inner, seed, dev)
+    else:
+        x = F.encode_ints(_ints(p, outer * m * inner, seed)[
+            :outer * m * inner], dev)
+    x = x.reshape(outer, m, inner, 8)
+    w = pow(F.root_of_unity, 1 << (F.S - log_m), p)
+    powers = F.encode_ints([pow(w, e, p) for e in range(max(m // 2, 1))], dev)
+    tr = "transpose" in flags
+    dims = ((inner, 1, 0, m if tr else 1, 0),
+            (outer, m * inner, 0, m * inner, 0))
+    consts = _ints(p, 6, seed + 1)[3:9]
+    twiddle = None
+    if "twiddle" in flags:
+        log_n = log_m + 2
+        wn = pow(F.root_of_unity, 1 << (F.S - log_n), p)
+        lo_bits = (log_n + 1) // 2
+        twiddle = (0, log_n, lo_bits,
+                   F.encode_ints([pow(wn, e, p)
+                                  for e in range(1 << lo_bits)], dev),
+                   F.encode_ints([pow(wn, e << lo_bits, p)
+                                  for e in range(1 << (log_n - lo_bits))],
+                                 dev))
+    return NttPass(
+        x, torch.zeros_like(x), powers, log_m, dims,
+        (inner, 1, 1 if tr else inner, 1),
+        (m + 1) // 2 if "pad" in flags else BIG,
+        (m + 1) // 2 if "truncate" in flags else BIG,
+        F.encode_ints(consts[:3], dev) if "load" in flags else None,
+        F.encode_ints(consts[3:], dev) if "store" in flags else None,
+        twiddle)
+
+
 @pytest.mark.parametrize("F", [BN254_FR, PASTA_FP, PASTA_FQ],
                          ids=["fr", "pasta-fp", "pasta-fq"])
 def test_kernel_c_matches_plain(F, cuda):
-    for log_m, outer, inner in ((10, 2, 3), (9, 1, 8), (1, 3, 5)):
-        m = 1 << log_m
-        x = F.encode_ints(_ints(F.p, outer * m * inner - 3, log_m),
-                          cuda).reshape(outer, m, inner, 8)
-        omega = pow(F.root_of_unity, 1 << (F.S - log_m), F.p)
-        table = stage_table(F, omega, log_m, cuda)
-        assert torch.equal(base_ntt(F, x, table, log_m),
-                           base_ntt_plain(F, x, table, log_m))
-    a = F.encode_ints(_ints(F.p, (2 << 12) - 3, 5), "cpu").reshape(
-        2, 1 << 12, 8)
-    assert torch.equal(get_ntt(F, 12, cuda).forward(a.to(cuda)).cpu(),
-                       get_ntt(F, 12, "cpu").forward(a))
-    ntt = get_ntt(F, 20, cuda)
-    big = a.reshape(-1, 8).to(cuda).repeat(128, 1).reshape(1 << 20, 8)
-    assert torch.equal(ntt.inverse(ntt.forward(big)), big)
+    """Every flag combination at m = 2^1 .. 2^10 on 6 columns; every flag
+    on 600 columns (several blocks, a partial last one); and every flag,
+    with and without the transposed store, on enough columns for a block
+    of the most columns at that m (min(MAX_COLS, ELEMS / m)), with a
+    partial last block."""
+    for log_m in range(1, 11):
+        for bits in range(1 << len(C_FLAGS)):
+            flags = [f for i, f in enumerate(C_FLAGS) if bits >> i & 1]
+            case = _c_case(F, log_m, flags, cuda, log_m + bits)
+            want = base_ntt_plain(F, _c_case(F, log_m, flags, cuda,
+                                             log_m + bits))
+            assert torch.equal(base_ntt(F, case), want), (log_m, flags)
+        case = _c_case(F, log_m, C_FLAGS, cuda, 7, outer=3, inner=200)
+        want = base_ntt_plain(F, _c_case(F, log_m, C_FLAGS, cuda, 7, 3, 200))
+        assert torch.equal(base_ntt(F, case), want), log_m
+        per_block = min(fused.MAX_COLS, fused.ELEMS >> log_m)
+        sms = fused.sm_count(cuda.index or 0)
+        cols = fused.BLOCKS_PER_SM * sms * per_block + 5
+        assert fused._log_cols(log_m, cols, sms) == per_block.bit_length() - 1
+        for flags in (C_FLAGS, C_FLAGS[:-1]):
+            case = _c_case(F, log_m, flags, cuda, 9, outer=1, inner=cols)
+            want = base_ntt_plain(F, dataclasses.replace(
+                case, dst=torch.zeros_like(case.dst)))
+            assert torch.equal(base_ntt(F, case), want), (log_m, flags)
+
+
+@pytest.mark.parametrize("F", [BN254_FR, PASTA_FP, PASTA_FQ],
+                         ids=["fr", "pasta-fp", "pasta-fq"])
+def test_transforms_match_cpu(F, cuda):
+    """Whole transforms on the card equal the CPU-plain ones: forward and
+    inverse at 2^11 and 2^12, the coset pair of domains extended to 2^11
+    and 2^12, a plan of two split levels (base capped at 2^3), and
+    inverse(forward(x)) at 2^20 and 2^22."""
+    for log_n in (11, 12):
+        a = F.encode_ints(_ints(F.p, (2 << log_n) - 3, log_n),
+                          "cpu").reshape(2, 1 << log_n, 8)
+        gpu, cpu = get_ntt(F, log_n, cuda), get_ntt(F, log_n, "cpu")
+        assert torch.equal(gpu.forward(a.to(cuda)).cpu(), cpu.forward(a))
+        assert torch.equal(gpu.inverse(a.to(cuda)).cpu(), cpu.inverse(a))
+        dg = EvaluationDomain(F, 5, log_n - 2, cuda)
+        dc = EvaluationDomain(F, 5, log_n - 2, "cpu")
+        c = a[:, : dc.n]
+        assert torch.equal(dg.coeff_to_extended(c.to(cuda)).cpu(),
+                           dc.coeff_to_extended(c))
+        assert torch.equal(dg.extended_to_coeff(a.to(cuda)).cpu(),
+                           dc.extended_to_coeff(a))
+        omega = pow(F.root_of_unity, 1 << (F.S - log_n), F.p)
+        two_g = FusedNTT(F, log_n, omega, cuda, _log_max_base=3)
+        two_c = FusedNTT(F, log_n, omega, "cpu", _log_max_base=3)
+        assert torch.equal(two_g.forward(a.to(cuda)).cpu(), two_c.forward(a))
+        assert torch.equal(two_g._transform(
+            a[:, :1000].to(cuda), True, load=(2, 3, 5), store=(7, 11, 13),
+            rows=999).cpu(), two_c._transform(
+            a[:, :1000], True, load=(2, 3, 5), store=(7, 11, 13), rows=999))
+    for log_n in (20, 22):
+        ntt = get_ntt(F, log_n, cuda)
+        big = a.reshape(-1, 8).to(cuda).repeat(1 << (log_n - 13), 1)
+        assert torch.equal(ntt.inverse(ntt.forward(big)), big)
 
 
 def _stream_scalar_sets(C, n: int, seed: int) -> list:

@@ -1,11 +1,11 @@
-"""The carry-chain Montgomery product of kernels D and 8
-(halo2_tpu_torch/csrc/mont_chain.cuh) on the CPU, and the SASS census of
-halo2_tpu_torch/tools/card.py.
+"""The carry-chain Montgomery product of kernels B, C, D, 8 and 9 and kernel
+C's carry-chain sum and difference (halo2_tpu_torch/csrc/mont_chain.cuh)
+on the CPU, and the SASS census of halo2_tpu_torch/tools/card.py.
 
-The product's primitives carry a host model of the PTX carry flag, so g++
-builds the same chain here; its words are held against python integers
-for the four moduli, with 0, 1, p - 1 and random canonical operands.  The
-SASS parser is held against a hand-written listing in cuobjdump's format.
+The primitives carry a host model of the PTX carry flag, so g++ builds the
+same chains here; their words are held against python integers for the
+four moduli, with 0, 1, p - 1 and random canonical operands.  The SASS
+parser is held against a hand-written listing in cuobjdump's format.
 """
 
 import os
@@ -42,7 +42,10 @@ int main() {
     for (int i = 0; i < 8; i++) scanf("%x", &a.w[i]);
     for (int i = 0; i < 8; i++) scanf("%x", &b.w[i]);
     const Fe r = fe_mul_chain<Mod>(a, b);
+    const Fe s = fe_add_chain<Mod>(a, b), d = fe_sub_chain<Mod>(a, b);
     for (int i = 0; i < 8; i++) printf("%x ", r.w[i]);
+    for (int i = 0; i < 8; i++) printf("%x ", s.w[i]);
+    for (int i = 0; i < 8; i++) printf("%x ", d.w[i]);
     printf("\n");
   }
   return 0;
@@ -70,6 +73,7 @@ def _words(x: int) -> str:
 @pytest.mark.parametrize("F", [BN254_FR, BN254_FQ, PASTA_FP, PASTA_FQ],
                          ids=["fr", "fq", "pasta-fp", "pasta-fq"])
 def test_chain_product_matches_integers(chain_binary, F):
+    """The product, and kernel C's sum and difference, of each pair."""
     p = F.p
     rng = np.random.default_rng(3)
     edge = [0, 1, 2, p - 1, p - 2, (1 << 255) % p]
@@ -83,8 +87,11 @@ def test_chain_product_matches_integers(chain_binary, F):
                          text=True, check=True, timeout=60).stdout.split("\n")
     r_inv = pow(1 << 256, -1, p)
     for (a, b), line in zip(pairs, out):
-        got = sum(int(w, 16) << (32 * i) for i, w in enumerate(line.split()))
-        assert got == a * b * r_inv % p, (hex(a), hex(b))
+        w = [int(t, 16) for t in line.split()]
+        got = [sum(x << (32 * i) for i, x in enumerate(w[k:k + 8]))
+               for k in (0, 8, 16)]
+        assert got == [a * b * r_inv % p, (a + b) % p, (a - b) % p], \
+            (hex(a), hex(b))
 
 
 SASS = """

@@ -6,19 +6,27 @@ Builds the port's CUDA kernels from halo2_tpu_torch/csrc and holds each of
 them, and each of their BN254 and Pasta instances, against its plain
 PyTorch version on the card word for word.  Proves on the CPU (plain
 versions) and on the GPU (kernels) and requires equal proof bytes: KZG
-plonk_api at k=8 and IPA/Vesta plonk_api at k=6.  Then it drives five
+plonk_api at k=8, IPA/Vesta plonk_api at k=6, and the shuffle and
+two-phase circuits at k=8 on KZG / GWC / Keccak256.  Then it drives seven
 main paths, each with the launch counts set to 0 just before it and read
 just after:
 
   k=18 plonk_api, KZG / SHPLONK  (kernels A, B, C, D, the ordering pass)
+  k=18 shuffle (shuffle_api.rs's circuit), KZG / GWC / Keccak256, and
+  k=18 two-phase, KZG / SHPLONK / Keccak256, both through ProofConfig on
+       the plonk_api path's params and tables  (A, B's add, C, D, the
+       ordering pass)
   k=20 lookup_heavy, KZG / SHPLONK, on the unbaked table (kernel 8)
   k=14 plonk_api, IPA / Vesta, opening MSMs on the segmented scan (kernel 9)
   bench micro k=18: the port bench's micro stage (MSM, NTT, kernel 10)
   probes: the ALU, gather and transpose probes (kernels 10-15)
 
-the first three each with params, keygen, a first and steady proves with
-their step tables, verify, and a tampered proof that must be rejected, then
-one profiled prove (device busy and idle share).  The ordering pass and
+the first five each with params (the shuffle and two-phase paths reuse
+the k=18 ones), keygen, a first and steady proves with their step tables,
+verify, and a tampered proof that must be rejected (the shuffle path also
+a non-permutation witness, the two-phase path a phase-2 cell off by
+one), then one profiled prove (device busy and idle
+share; not on lookup_heavy).  The ordering pass and
 kernel D are held against their plain versions at the k=18 table, the
 ordering pass and kernel 8 at the k=20 one, for random, 16-bit, zero,
 equal and one-bucket scalars; both are timed on random scalars and on the
@@ -77,7 +85,13 @@ N_STEADY = 3          # steady proves at K_MAIN, for their spread
 K_LOOKUP = 20
 K_IPA = 14
 K_IPA_CMP = 6
-N_STEADY_BIG = 2      # steady proves at K_LOOKUP and K_IPA
+N_STEADY_BIG = 2      # steady proves at K_LOOKUP, K_IPA and the K_MAIN
+                      # shuffle and phase paths
+# the paths proved through ProofConfig on the K_MAIN plonk_api path's
+# params: the reference's shuffle_api.rs circuit for an EVM verifier, and
+# the two-phase circuit
+CONFIG_PATHS = {"shuffle": dict(scheme="kzg-gwc", transcript="keccak256"),
+                "phase": dict(scheme="kzg-shplonk", transcript="keccak256")}
 
 # The reference's TPU kernels, by file and line in the JAX package.
 REFERENCE = "halo2_tpu"
@@ -143,12 +157,18 @@ def main() -> int:
         compare_kzg_cpu_gpu(torch, dev)
     with phase(f"IPA k={K_IPA_CMP} CPU == GPU", walls):
         compare_ipa_cpu_gpu(torch, dev)
+    with phase(f"shuffle and phase k={K_CMP}, GWC + Keccak256, CPU == GPU",
+               walls):
+        compare_config_cpu_gpu(torch, dev)
 
     counts = {}
     with phase(f"KZG plonk_api k={K_MAIN}", walls):
         path = run_kzg_plonk_api(torch, dev, counts)
     with phase(f"ordering pass and kernel D at k={K_MAIN}", walls):
         check_stream_main(torch, *path, bound, results)
+    for name in CONFIG_PATHS:
+        with phase(f"KZG {name} k={K_MAIN}", walls):
+            run_config_path(torch, path[0], counts, name)
     del path
     with phase(f"KZG lookup_heavy k={K_LOOKUP}", walls):
         path = run_lookup_heavy(torch, dev, counts)
@@ -874,22 +894,58 @@ def compare_ipa_cpu_gpu(torch, dev):
     log(f"[IPA k={K_IPA_CMP}] CPU-plain and GPU-kernel proof bytes are equal")
 
 
+def config_instance(name: str, k: int):
+    """(circuit, keygen circuit, bad-witness circuit) of a CONFIG_PATHS
+    circuit at every usable row of 2^k: the shuffle's bad witness is no
+    permutation, the two-phase circuit's has one phase-2 cell off by one."""
+    from halo2_tpu_torch.compat import shuffle_api
+    return getattr(shuffle_api, f"{name}_instance")(k)
+
+
+def compare_config_cpu_gpu(torch, dev):
+    """The CONFIG_PATHS circuits at K_CMP under GWC + Keccak256 through
+    ProofConfig: CPU-plain and GPU-kernel proof bytes must be equal."""
+    for name in CONFIG_PATHS:
+        circuit, kg_circuit, _ = config_instance(name, K_CMP)
+        proofs = {}
+        for where in ("cpu", dev):
+            t0 = time.time()
+            cfg = _config(where, K_CMP, scheme="kzg-gwc",
+                          transcript="keccak256")
+            params = cfg.params()
+            pk = cfg.keygen(kg_circuit, params=params)
+            proof = cfg.prove(pk, [circuit], [[]], random.Random(1),
+                              params=params)
+            if not cfg.verify(pk.vk, proof, [[]], params=params):
+                raise AssertionError(f"{name} k={K_CMP} proof on {where} "
+                                     f"failed")
+            proofs[str(where)] = proof
+            log(f"[{name} k={K_CMP} GWC+Keccak256] {where}: params+keygen+"
+                f"prove+verify {time.time() - t0:.2f} s, {len(proof)} proof "
+                f"bytes")
+        if proofs["cpu"] != proofs[str(dev)]:
+            raise AssertionError(f"{name}: CPU-plain and GPU-kernel proofs "
+                                 f"differ")
+        log(f"[{name} k={K_CMP} GWC+Keccak256] CPU-plain and GPU-kernel "
+            f"proof bytes are equal")
+
+
 # ----------------------------------------------------------------------
 # the main paths
 # ----------------------------------------------------------------------
 
-def prove_verify(torch, tag, params, pk, circuit, inst, n_steady, prove_kw,
-                 verify_kw):
-    """A first and n_steady steady proves with their step tables, verify,
-    and a tampered proof that must be rejected."""
-    from halo2_tpu_torch.api import create_proof, verify
+def prove_verify(torch, tag, cfg, params, pk, circuit, inst, n_steady,
+                 bad_circuit=None):
+    """Through ProofConfig `cfg` on `params`: a first and n_steady steady
+    proves with their step tables, verify, a tampered proof that must be
+    rejected and, where given, a proof of a bad witness that must be
+    rejected too."""
     steady = []
     for seed, run in enumerate(["first"] + ["steady"] * n_steady, start=1):
         timings = {}
         t0 = time.time()
-        proof = create_proof(params, pk, [circuit], [inst],
-                             random.Random(seed), timings=timings,
-                             **prove_kw)
+        proof = cfg.prove(pk, [circuit], [inst], random.Random(seed),
+                          params=params, timings=timings)
         torch.cuda.synchronize()
         wall = time.time() - t0
         if run == "steady":
@@ -900,15 +956,21 @@ def prove_verify(torch, tag, params, pk, circuit, inst, n_steady, prove_kw,
         f"{sorted(steady)[n_steady // 2]:.3f} s, min {min(steady):.3f} s, "
         f"max {max(steady):.3f} s")
     t0 = time.time()
-    ok = verify(params, pk.vk, proof, [inst], **verify_kw)
+    ok = cfg.verify(pk.vk, proof, [inst], params=params)
     t_verify = time.time() - t0
     bad = bytearray(proof)
     bad[len(bad) // 2] ^= 1
-    rejected = not verify(params, pk.vk, bytes(bad), [inst], **verify_kw)
+    rejected = not cfg.verify(pk.vk, bytes(bad), [inst], params=params)
     log(f"[{tag}] verify {ok} in {t_verify:.3f} s; tampered proof rejected "
         f"{rejected}; {len(proof)} proof bytes")
     if not ok or not rejected:
         raise AssertionError(f"{tag}: verification failed")
+    if bad_circuit is not None:
+        bad = cfg.prove(pk, [bad_circuit], [inst], random.Random(99),
+                        params=params)
+        if cfg.verify(pk.vk, bad, [inst], params=params):
+            raise AssertionError(f"{tag}: a bad witness's proof verified")
+        log(f"[{tag}] the proof of a bad witness is rejected")
 
 
 def run_path(torch, tag, counts, need, body):
@@ -944,12 +1006,10 @@ def run_path(torch, tag, counts, need, body):
     return out
 
 
-def _kzg_kw():
-    from halo2_tpu_torch.commit import (ProverSHPLONK, SingleStrategyKZG,
-                                        VerifierSHPLONK)
-    return (dict(multiopen_prover_cls=ProverSHPLONK),
-            dict(multiopen_verifier_cls=VerifierSHPLONK,
-                 strategy_cls=SingleStrategyKZG))
+def _config(dev, k: int, **kw):
+    """The path's ProofConfig; by default KZG / SHPLONK / Blake2b."""
+    from halo2_tpu_torch.config import ProofConfig
+    return ProofConfig(k=k, device=str(dev), **kw)
 
 
 def run_kzg_plonk_api(torch, dev, counts):
@@ -970,14 +1030,14 @@ def run_kzg_plonk_api(torch, dev, counts):
         torch.cuda.synchronize()
         log(f"[{tag}] ParamsKZG.new {t_params:.2f} s, keygen "
             f"{time.time() - t0:.2f} s")
-        prove_verify(torch, tag, params, pk, circuit, inst, N_STEADY,
-                     *_kzg_kw())
+        prove_verify(torch, tag, cfg, params, pk, circuit, inst, N_STEADY)
         return params, pk
 
+    cfg = _config(dev, K_MAIN)
     params, pk = run_path(torch, tag, counts, (
         "h2_field_binop", "h2_ec_add", "h2_ec_madd", "h2_ec_double",
         "h2_ntt_base", "h2_msm_order", "h2_stream_bucket"), body)
-    profile_prove(torch, tag, params, pk, circuit, inst)
+    profile_prove(torch, tag, cfg, params, pk, circuit, inst)
     return params, pk, circuit, inst
 
 
@@ -1002,8 +1062,8 @@ def run_lookup_heavy(torch, dev, counts):
         log(f"[{tag}] ParamsKZG.new {t_params:.2f} s, keygen "
             f"{time.time() - t0:.2f} s; "
             f"{len(pk.vk.cs.cs.lookups)} lookups")
-        prove_verify(torch, tag, params, pk, circuit, inst, N_STEADY_BIG,
-                     *_kzg_kw())
+        prove_verify(torch, tag, _config(dev, K_LOOKUP), params, pk,
+                     circuit, inst, N_STEADY_BIG)
         return params, pk
 
     params, pk = run_path(torch, tag, counts, (
@@ -1032,33 +1092,63 @@ def run_ipa(torch, dev, counts):
         torch.cuda.synchronize()
         log(f"[{tag}] ParamsIPA.new {t_params:.2f} s (host hash-to-curve "
             f"and point NTT), keygen {time.time() - t0:.2f} s")
-        prove_verify(torch, tag, params, pk, circuit, inst, N_STEADY_BIG,
-                     {}, {})
+        prove_verify(torch, tag, cfg, params, pk, circuit, inst,
+                     N_STEADY_BIG)
         return params, pk
 
+    cfg = _config(dev, K_IPA, curve="vesta", scheme="ipa")
     params, pk = run_path(torch, tag, counts, (
         "h2_field_binop", "h2_ec_add", "h2_ec_double", "h2_ntt_base",
         "h2_msm_order", "h2_stream_bucket", "h2_scan_level",
         "h2_ec_scalar_mul", "h2_ec_horner"), body)
-    profile_prove(torch, tag, params, pk, circuit, inst, {})
+    profile_prove(torch, tag, cfg, params, pk, circuit, inst)
     return params, pk, circuit, inst
 
 
-def profile_prove(torch, tag, params, pk, circuit, inst, prove_kw=None):
+def run_config_path(torch, params, counts, name):
+    """A CONFIG_PATHS circuit at every usable row of 2^K_MAIN through
+    ProofConfig on the plonk_api path's params (and so its cached
+    fixed-base tables): keygen, a first and steady proves, verify, a
+    tampered proof and a bad witness (config_instance) rejected, then one
+    profiled prove.  Kernel B's mixed add and doubling run only where
+    params are made (`Curve.generator_mul` in ParamsKZG.setup) and where
+    their fixed-base tables are baked (`StreamMSM`), both of which the
+    path reuses, so they are not among the path's kernels."""
+    tag = f"KZG {name} k={K_MAIN}"
+    cfg = _config(params.device, K_MAIN, **CONFIG_PATHS[name])
+    t0 = time.time()
+    circuit, kg_circuit, bad = config_instance(name, K_MAIN)
+    log(f"[{tag}] {cfg.scheme} + {cfg.transcript} through ProofConfig; "
+        f"witness of {kg_circuit.n_rows} rows in {time.time() - t0:.2f} s")
+
+    def body():
+        t0 = time.time()
+        pk = cfg.keygen(kg_circuit, params=params)
+        torch.cuda.synchronize()
+        d = pk.vk.domain
+        log(f"[{tag}] keygen {time.time() - t0:.2f} s; extended k "
+            f"{d.extended_k}, quotient degree {d.quotient_poly_degree}")
+        prove_verify(torch, tag, cfg, params, pk, circuit, [], N_STEADY_BIG,
+                     bad)
+        return pk
+
+    pk = run_path(torch, tag, counts, (
+        "h2_field_binop", "h2_ec_add", "h2_ntt_base", "h2_msm_order",
+        "h2_stream_bucket"), body)
+    profile_prove(torch, tag, cfg, params, pk, circuit, [])
+
+
+def profile_prove(torch, tag, cfg, params, pk, circuit, inst):
     """One more steady prove under torch.profiler: device busy time (union
     of kernel intervals) against wall time, the number of device kernels,
     and the kernels that take the time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from halo2_tpu_torch.api import create_proof
-    if prove_kw is None:
-        prove_kw = _kzg_kw()[0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        create_proof(params, pk, [circuit], [inst], random.Random(3),
-                     **prove_kw)
+        cfg.prove(pk, [circuit], [inst], random.Random(3), params=params)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -1179,7 +1269,6 @@ def check_stream_main(torch, params, pk, circuit, inst, bound, results):
     random, 16-bit, zero, equal and one-bucket scalars; timed on random
     scalars and on the scalars of real commitments of one more prove,
     whose nonzero shares are printed."""
-    from halo2_tpu_torch.api import create_proof
     from halo2_tpu_torch.msm import stream_msm as sm
     from halo2_tpu_torch.tools import card
     G = params.curve
@@ -1218,8 +1307,8 @@ def check_stream_main(torch, params, pk, circuit, inst, bound, results):
         f"bucket sums {t['buckets_ms']:.3f} ms; whole MSM {msm_ms:.3f} ms")
 
     with msm_census(torch, keep=True) as calls:
-        create_proof(params, pk, [circuit], [inst], random.Random(7),
-                     **_kzg_kw()[0])
+        _config(params.device, pk.vk.k).prove(
+            pk, [circuit], [inst], random.Random(7), params=params)
     shares = log_census(tag, calls)
     real = {}
     for label, pick in (("sparsest", min), ("densest", max)):

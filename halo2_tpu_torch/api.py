@@ -7,8 +7,11 @@ the params' device (CUDA unless the caller names another).
     proof = create_proof(params, pk, [circuit], [instances], rng)
     ok = verify(params, pk.vk, proof, [instances])
 
-KZG callers pass `multiopen_prover_cls=ProverSHPLONK`, and
-`multiopen_verifier_cls=VerifierSHPLONK, strategy_cls=SingleStrategyKZG`.
+KZG callers pass `multiopen_prover_cls=ProverSHPLONK` (or `ProverGWC`),
+and `multiopen_verifier_cls=VerifierSHPLONK` (or `VerifierGWC`),
+`strategy_cls=SingleStrategyKZG`; an EVM verifier's transcript is
+`Keccak256Write` / `Keccak256Read`.  `config.ProofConfig` picks all of
+these from names.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from .commit import ProverIPA, SingleStrategyIPA, VerifierIPA, new_rng
 from .engine import PlonkEngine
 from .plonk import Prover
 from .plonk import keygen as backend_keygen
-from .plonk.verifier import verify_proof
+from .plonk.verifier import verify_proof_single
 from .transcript import Blake2bRead, Blake2bWrite
 
 
@@ -79,12 +82,9 @@ def verify(params, vk, proof: bytes, instances,
            transcript_cls=Blake2bRead,
            multiopen_verifier_cls=VerifierIPA,
            strategy_cls=SingleStrategyIPA) -> bool:
-    transcript = transcript_cls(params.curve, proof)
-    verifier = multiopen_verifier_cls(params)
     try:
-        queries = verify_proof(params, vk, transcript, instances,
-                               verifier.QUERY_INSTANCE)
-        return strategy_cls(params).process(
-            lambda msm: verifier.verify_proof(transcript, queries, msm))
+        return verify_proof_single(params, vk, proof, instances,
+                                   transcript_cls, multiopen_verifier_cls,
+                                   strategy_cls)
     except VerifyError:
         return False

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import random
 import struct
+from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
@@ -318,6 +319,33 @@ class GuardIPA:
         s = compute_s(self.msm.params.curve.Fr.p, self.u, self.neg_c)
         self.msm.add_to_g_scalars(s)
         return self.msm
+
+    def use_g(self, g):
+        """The caller supplies the purported G = <s, params.g>; returns the
+        MSM with -c G added and the Accumulator a recursive verifier
+        carries (strategy.rs:54-66)."""
+        self.msm.append_term(self.neg_c, g)
+        return self.msm, Accumulator(g=g, u_packed=list(self.u))
+
+    def compute_g(self):
+        """G = <s, params.g> (strategy.rs:68-71): a 2^k variable-base MSM
+        on the params' device (kernel 9 on the card), as an affine point."""
+        params = self.msm.params
+        curve = params.curve
+        s = compute_s(curve.Fr.p, self.u, 1)
+        g = msm(curve, curve.Fr.encode_ints(s, params.device), params.g)
+        return curve.to_affine_ints(g[None])[0]
+
+    def use_g_with_computed(self):
+        return self.use_g(self.compute_g())
+
+
+@dataclass
+class Accumulator:
+    """An evaluation claim and its packed challenges, for the recursion
+    path (strategy.rs:27-36)."""
+    g: object
+    u_packed: list
 
 
 def verify_opening_proof(params: ParamsIPA, msm_acc: MSMIPA, transcript,

@@ -13,6 +13,7 @@ reference marks `setup`); params without s use the real pairing.
 
 from __future__ import annotations
 
+import random
 from typing import List, Optional
 
 import torch
@@ -20,6 +21,7 @@ import torch
 from .._build import resolve_device
 from ..compat import bn254_pairing as bn
 from ..curves import BN254_G1
+from ..curves.point_ntt import g_to_lagrange
 from ..engine import PlonkEngine
 from ..msm.host_msm import host_msm
 from ..msm.msm import msm
@@ -69,8 +71,7 @@ class ParamsKZG:
         p = F.p
         n = 1 << k
         if s is None:
-            import random as _r
-            s = (rng or _r.SystemRandom()).randrange(1, p)
+            s = (rng or random.SystemRandom()).randrange(1, p)
         powers_s = [1] * n
         for i in range(1, n):
             powers_s[i] = powers_s[i - 1] * s % p
@@ -107,6 +108,18 @@ class ParamsKZG:
         """Deterministic test params with the reference's default s, so both
         packages commit against one SRS (toxic s retained, insecure)."""
         return ParamsKZG.setup(k, s=s, device=device)
+
+    def downsize(self, k: int) -> "ParamsKZG":
+        """The params of a smaller domain (kzg/commitment.rs:291-299): the
+        first 2^k monomial-basis points, and their Lagrange form by the
+        inverse point NTT.  Returns new params; self is unchanged."""
+        assert k <= self.k
+        curve = self.curve
+        g = self.g[: 1 << k]
+        gl = g_to_lagrange(curve, g, k)
+        return ParamsKZG(k, g, curve.from_affine_coords(
+            curve.batch_normalize(gl), curve.is_identity(gl)),
+            self.g2, self.s_g2, s_secret=self.s_secret)
 
     # -- commitments (the blind is unused: KZG hides with the random poly)
 
@@ -244,3 +257,21 @@ class SingleStrategyKZG:
 
     def process(self, f) -> bool:
         return f(DualMSM(self.params)).msm.check()
+
+
+class AccumulatorStrategyKZG:
+    """Folds several proofs into one DualMSM under random scalings; one
+    check at the end (kzg/strategy.rs)."""
+
+    def __init__(self, params: ParamsKZG, rng=None):
+        self.params = params
+        self.msm = DualMSM(params)
+        self.rng = rng or random.SystemRandom()
+
+    def process(self, f):
+        self.msm.scale(self.rng.randrange(1, self.params.curve.Fr.p))
+        self.msm = f(self.msm).msm
+        return self
+
+    def finalize(self) -> bool:
+        return self.msm.check()

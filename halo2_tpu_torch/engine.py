@@ -65,3 +65,16 @@ class GpuMsmEngine(H2cEngine):
 class PlonkEngine:
     """The engine bundle threaded through keygen and the prover."""
     msm_backend: H2cEngine = field(default_factory=GpuMsmEngine)
+
+
+class PlonkEngineConfig:
+    """The builder of the reference's type-state engine config
+    (zal.rs:196-243)."""
+
+    @staticmethod
+    def build_default() -> PlonkEngine:
+        return PlonkEngine()
+
+    @staticmethod
+    def set_msm(engine: H2cEngine) -> PlonkEngine:
+        return PlonkEngine(msm_backend=engine)

@@ -510,7 +510,7 @@ class KeygenAssembly:
         self.p = p
         self.k = k
         self.n = 1 << k
-        self.usable_rows = self.n - (cs.blinding_factors() + 1)
+        self.usable_rows = cs.usable_rows(k)
         self.fixed = [[0] * self.n for _ in range(cs.num_fixed_columns)]
         self.selectors = [[False] * self.n for _ in range(cs.num_selectors)]
         self.copies: List = []
@@ -720,7 +720,7 @@ class WitnessCalculator:
         self.config = config
         self.cs = cs
         self.instances = instances
-        self.usable_rows = (1 << k) - (cs.blinding_factors() + 1)
+        self.usable_rows = cs.usable_rows(k)
 
     def calc(self, phase: int, challenges: Dict[int, int]):
         """Returns {advice_col_index: list[int]} for columns in `phase`."""

@@ -301,6 +301,11 @@ class ConstraintSystem:
     def minimum_rows(self) -> int:
         return self.blinding_factors() + 3
 
+    def usable_rows(self, k: int) -> int:
+        """Rows of 2^k a circuit can assign: all but the blinding rows
+        and the last."""
+        return (1 << k) - (self.blinding_factors() + 1)
+
     def phases(self) -> List[int]:
         return sorted(set([0] + self.advice_column_phase +
                           self.challenge_phase))

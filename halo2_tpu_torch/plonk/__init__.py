@@ -1,10 +1,10 @@
 from .keygen import (ConstraintSystemBack, PermutationAssembly, ProvingKey,
                      VerifyingKey, keygen)
 from .prover import Evaluator, Prover
-from .verifier import verify_proof
+from .verifier import verify_proof, verify_proof_single
 
 __all__ = [
     "ConstraintSystemBack", "PermutationAssembly", "ProvingKey",
     "VerifyingKey", "keygen", "Evaluator", "Prover",
-    "verify_proof",
+    "verify_proof", "verify_proof_single",
 ]

@@ -1,7 +1,8 @@
 """PLONK prover (port of the JAX reference's plonk/prover.py; prover.rs
 state machine :174-494 and proof steps :512-899): gates, the permutation
-argument, lookups and the vanishing argument, for multiopen schemes that
-absorb the instances as scalars (SHPLONK) or commit to them (IPA).
+argument, lookups, shuffles and the vanishing argument, for multiopen
+schemes that absorb the instances as scalars (SHPLONK, GWC) or commit to
+them (IPA).
 
 Column sets move through the NTTs as stacked tensors; grand products use
 batch inversion and log-depth prefix products; transcript traffic stays on
@@ -29,9 +30,6 @@ from .evaluation import evaluate_expression
 from .keygen import ProvingKey
 from .lookup_sort import permute_expression_pair_device
 
-SHUFFLE_TODO = "shuffle arguments are not ported yet (ROADMAP Queue 1)"
-
-
 def _random_poly(F: Field, n: int, rng, device):
     """n uniform field elements from 384 rng-derived bits each: one 64-bit
     draw seeds numpy's PCG64, exactly as the reference
@@ -58,7 +56,8 @@ def _sync(device):
 class Evaluator:
     """The h-numerator over the extended domain (evaluation.rs:317-623):
     one batched coset NTT per argument, then elementwise passes for the
-    gates, the permutation and each lookup (cosets streamed per lookup)."""
+    gates, the permutation, each lookup and each shuffle (cosets streamed
+    per argument)."""
 
     def __init__(self, F: Field, domain, cs_back):
         self.F = F
@@ -76,10 +75,11 @@ class Evaluator:
             rot_scale=1 << (self.domain.extended_k - self.domain.k))
 
     def evaluate_h(self, pk: ProvingKey, advice_polys, instance_polys,
-                   challenges, y, beta, gamma, theta, lookups, permutations):
+                   challenges, y, beta, gamma, theta, lookups, shuffles,
+                   permutations):
         """Lists are per circuit; lookups[c][l] = (z, a', s') coeff polys,
-        permutations[c] = [z per set].  Returns the extended-domain
-        numerator of h."""
+        shuffles[c][s] = z, permutations[c] = [z per set].  Returns the
+        extended-domain numerator of h."""
         F, domain, cs = self.F, self.domain, self.cs_back.cs
         dev = domain.device
         ext_n = domain.extended_n
@@ -107,6 +107,9 @@ class Evaluator:
                 value = self._lookup(pk, cs.lookups[li], value, y, beta,
                                      gamma, theta, ch,
                                      to_ext(Poly.stack([z, a, s])), cols)
+            for si, z in enumerate(shuffles[c]):
+                value = self._shuffle(pk, cs.shuffles[si], value, y, gamma,
+                                      theta, ch, to_ext(z), cols)
         return Poly.extended(value)
 
     def _perm(self, pk, value, y, beta, gamma, exts, cols):
@@ -179,6 +182,23 @@ class Evaluator:
         return F.add(F.mul(value, y), F.mul(
             F.mul(F.sub(a, s), F.sub(a, a_prev)), l_active))
 
+    def _shuffle(self, pk, sh_arg, value, y, gamma, theta, ch, z, cols):
+        F, domain = self.F, self.domain
+        one = F.ones((), domain.device)
+        l0, l_last, l_active = pk.l0, pk.l_last, pk.l_active_row
+        z_next = domain.rotate_extended(z, Rotation(1))
+        comp_in = self._compress(sh_arg.input_expressions, theta, cols, ch)
+        comp_sh = self._compress(sh_arg.shuffle_expressions, theta, cols, ch)
+        # l_0 (1 - z)
+        value = F.add(F.mul(value, y), F.mul(l0, F.sub(one, z)))
+        # l_last (z^2 - z)
+        value = F.add(F.mul(value, y),
+                      F.mul(l_last, F.sub(F.square(z), z)))
+        # active (z(wX)(S + g) - z(X)(A + g))
+        left = F.mul(z_next, F.add(comp_sh, gamma))
+        right = F.mul(z, F.add(comp_in, gamma))
+        return F.add(F.mul(value, y), F.mul(F.sub(left, right), l_active))
+
 
 class Prover:
     """Multi-circuit prover state machine (prover.rs:130-899)."""
@@ -197,8 +217,6 @@ class Prover:
             params.set_engine(engine)
         self.challenges: Dict[int, int] = {}
         cs = pk.vk.cs.cs
-        if cs.shuffles:
-            raise NotImplementedError(SHUFFLE_TODO)
         for inst in instances:
             if len(inst) != cs.num_instance_columns:
                 raise ValueError("invalid number of instance columns")
@@ -326,7 +344,8 @@ class Prover:
                      for lk in cs.lookups] for c in range(n_circ)]
         self._tick("lookup_permute [T5-6]")
 
-        # [TRANSCRIPT-7/8] beta, gamma; [9] permutation; [10] lookup products
+        # [TRANSCRIPT-7/8] beta, gamma; [9] permutation; [10] lookup
+        # products; [11] shuffle products
         beta = t.squeeze_challenge()
         gamma = t.squeeze_challenge()
         permutations_z = [self._permutation_commit(c, beta, gamma)
@@ -334,6 +353,9 @@ class Prover:
         lookups_committed = [[self._lookup_commit_product(pl, beta, gamma)
                               for pl in permuted[c]] for c in range(n_circ)]
         permuted = None     # the Lagrange intermediates are dead from here
+        shuffles_committed = [[self._shuffle_commit_product(
+            c, sh, theta, gamma, challenges_enc) for sh in cs.shuffles]
+            for c in range(n_circ)]
         self._tick("grand_products [T9-11]")
 
         # [TRANSCRIPT-12] vanishing random poly
@@ -355,6 +377,8 @@ class Prover:
             [[(lk["product_poly"], lk["permuted_input_poly"],
                lk["permuted_table_poly"]) for lk in lkc]
              for lkc in lookups_committed],
+            [[sh["product_poly"] for sh in shc]
+             for shc in shuffles_committed],
             [[s["poly"] for s in pz] for pz in permutations_z])
         self._tick("evaluate_h [T13]")
 
@@ -420,6 +444,10 @@ class Prover:
                          (lk["permuted_input_poly"], x),
                          (lk["permuted_input_poly"], x_prev),
                          (lk["permuted_table_poly"], x)]
+        for c in range(n_circ):
+            for sh in shuffles_committed[c]:
+                reqs += [(sh["product_poly"], x),
+                         (sh["product_poly"], x_next)]
         for v in eval_polys_at_points(F, reqs):
             t.write_scalar(v)
         self._tick("evals [T15-23]")
@@ -460,6 +488,9 @@ class Prover:
                 queries += [ProverQuery(x, prod), ProverQuery(x, pin),
                             ProverQuery(x, ptab), ProverQuery(x_prev, pin),
                             ProverQuery(x_next, prod)]
+            for sh in shuffles_committed[c]:
+                prod = PolyRef(sh["product_poly"], sh["product_blind"])
+                queries += [ProverQuery(x, prod), ProverQuery(x_next, prod)]
         fixed_refs = {}
         for column, at in cs_back.fixed_queries:
             if column.index not in fixed_refs:
@@ -531,28 +562,36 @@ class Prover:
             "permuted_table_blind": tab_blind,
         }
 
-    def _lookup_commit_product(self, pl, beta, gamma):
-        """lookup/prover.rs:182-324."""
+    def _commit_product(self, ratios):
+        """The grand product z of a lookup or a shuffle: 1, then the
+        running product of `ratios` over the usable rows, then bf random
+        draws and one blind, committed in Lagrange form (lookup/prover.rs:
+        254-324, shuffle/prover.rs:160-211).  Returns (coeff z, blind)."""
         F = self.F
         p = F.p
         dev = self.device
-        domain = self.pk.vk.domain
-        n = domain.n
+        n = self.pk.vk.domain.n
         bf = self.pk.vk.cs.blinding_factors()
+        z = torch.cat([F.ones((1,), dev), prefix_product(F, ratios)])
+        z = Poly.lagrange(torch.cat([z[: n - bf], F.encode_ints(
+            [self.rng.randrange(p) for _ in range(bf)], dev)]))
+        blind = Blind(self.rng.randrange(p))
+        self.transcript.write_point(
+            self.params.commit_affine_lagrange(z, blind))
+        return self.pk.vk.domain.lagrange_to_coeff(z), blind
+
+    def _lookup_commit_product(self, pl, beta, gamma):
+        """lookup/prover.rs:182-324."""
+        F = self.F
+        dev = self.device
         b_enc, g_enc = F.encode_int(beta, dev), F.encode_int(gamma, dev)
         denom = F.mul(F.add(pl["permuted_input"], b_enc),
                       F.add(pl["permuted_table"], g_enc))
         numer = F.mul(F.add(pl["compressed_input"], b_enc),
                       F.add(pl["compressed_table"], g_enc))
-        cum = prefix_product(F, F.mul(numer, F.batch_inv(denom)))
-        z = torch.cat([F.ones((1,), dev), cum])[: n - bf]
-        z = Poly.lagrange(torch.cat([z, F.encode_ints(
-            [self.rng.randrange(p) for _ in range(bf)], dev)]))
-        blind = Blind(self.rng.randrange(p))
-        self.transcript.write_point(
-            self.params.commit_affine_lagrange(z, blind))
+        z, blind = self._commit_product(F.mul(numer, F.batch_inv(denom)))
         return {
-            "product_poly": domain.lagrange_to_coeff(z),
+            "product_poly": z,
             "product_blind": blind,
             "permuted_input_poly": pl["permuted_input_poly"],
             "permuted_table_poly": pl["permuted_table_poly"],
@@ -612,3 +651,19 @@ class Prover:
         for pt in pre.normalize():
             self.transcript.write_point(pt)
         return sets
+
+    def _shuffle_commit_product(self, circ, sh_arg, theta, gamma,
+                                challenges_enc):
+        """shuffle/prover.rs:97-211: the grand product of
+        (A + gamma) / (S + gamma)."""
+        F = self.F
+        dev = self.device
+        theta_enc = F.encode_int(theta, dev)
+        g_enc = F.encode_int(gamma, dev)
+        comp_in = self._compress(circ, sh_arg.input_expressions, theta_enc,
+                                 challenges_enc)
+        comp_sh = self._compress(circ, sh_arg.shuffle_expressions, theta_enc,
+                                 challenges_enc)
+        z, blind = self._commit_product(F.mul(
+            F.add(comp_in, g_enc), F.batch_inv(F.add(comp_sh, g_enc))))
+        return {"product_poly": z, "product_blind": blind}

@@ -22,8 +22,6 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
     p = F.p
     cs_back = vk.cs
     cs = cs_back.cs
-    if cs.shuffles:
-        raise NotImplementedError("shuffle arguments are not ported yet")
     domain = vk.domain
     n = domain.n
     bf = cs_back.blinding_factors()
@@ -85,6 +83,8 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
                               for _ in range(n_circ)]
     lookups_committed = [[transcript.read_point() for _ in cs.lookups]
                          for _ in range(n_circ)]
+    shuffles_committed = [[transcript.read_point() for _ in cs.shuffles]
+                          for _ in range(n_circ)]
     random_commitment = transcript.read_point()
     y = transcript.squeeze_challenge()
     h_commitments = [transcript.read_point()
@@ -130,6 +130,8 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
         permutations_evaluated.append(sets)
     lookups_evaluated = [[tuple(transcript.read_scalar() for _ in range(5))
                           for _ in cs.lookups] for _ in range(n_circ)]
+    shuffles_evaluated = [[(transcript.read_scalar(), transcript.read_scalar())
+                           for _ in cs.shuffles] for _ in range(n_circ)]
 
     # expected h(x) (verifier.rs:351-446)
     l_evals = domain.l_i_range_int(x, xn, list(range(-(bf + 1), 1)))
@@ -160,6 +162,12 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
         nonlocal h_sum
         h_sum = (h_sum * y + v) % p
 
+    def compress(exprs, c):
+        acc = 0
+        for e in exprs:
+            acc = (acc * theta + eval_expr(e, c)) % p
+        return acc
+
     for c in range(n_circ):
         for gate in cs.gates:
             for poly in gate.polys:
@@ -186,19 +194,24 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
                 fold((left - right) * active_rows % p)
         for lk_arg, (prod_ev, prod_next, pin_ev, pin_prev, ptab_ev) in zip(
                 cs.lookups, lookups_evaluated[c]):
-            def compress(exprs):
-                acc = 0
-                for e in exprs:
-                    acc = (acc * theta + eval_expr(e, c)) % p
-                return acc
             fold(l_0 * (1 - prod_ev) % p)
             fold(l_last * (prod_ev * prod_ev - prod_ev) % p)
             left = prod_next * (pin_ev + beta) * (ptab_ev + gamma) % p
-            right = prod_ev * (compress(lk_arg.input_expressions) + beta) \
-                * (compress(lk_arg.table_expressions) + gamma) % p
+            right = prod_ev * (compress(lk_arg.input_expressions, c) + beta) \
+                * (compress(lk_arg.table_expressions, c) + gamma) % p
             fold((left - right) * active_rows % p)
             fold(l_0 * (pin_ev - ptab_ev) % p)
             fold((pin_ev - ptab_ev) * (pin_ev - pin_prev) * active_rows % p)
+        # shuffles (shuffle/verifier.rs:60-120)
+        for sh_arg, (prod_ev, prod_next) in zip(cs.shuffles,
+                                                shuffles_evaluated[c]):
+            fold(l_0 * (1 - prod_ev) % p)
+            fold(l_last * (prod_ev * prod_ev - prod_ev) % p)
+            left = prod_next * (compress(sh_arg.shuffle_expressions, c)
+                                + gamma) % p
+            right = prod_ev * (compress(sh_arg.input_expressions, c)
+                               + gamma) % p
+            fold((left - right) * active_rows % p)
 
     expected_h_eval = h_sum * pow((xn - 1) % p, p - 2, p) % p
     h_msm = params.empty_msm()
@@ -246,6 +259,12 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
                 VerifierQuery(x_next, prod_c, prod_next,
                               ident=("lkz", c, li)),
             ]
+        for si, (comm, (prod_ev, prod_next)) in enumerate(zip(
+                shuffles_committed[c], shuffles_evaluated[c])):
+            queries.append(VerifierQuery(x, comm, prod_ev,
+                                         ident=("shz", c, si)))
+            queries.append(VerifierQuery(x_next, comm, prod_next,
+                                         ident=("shz", c, si)))
     for qi, (column, at) in enumerate(cs_back.fixed_queries):
         queries.append(VerifierQuery(
             domain.rotate_omega_int(x, at),
@@ -259,3 +278,16 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
     queries.append(VerifierQuery(x, random_commitment, random_eval,
                                  ident=("rand",)))
     return queries
+
+
+def verify_proof_single(params, vk: VerifyingKey, proof: bytes, instances,
+                        transcript_cls, multiopen_verifier_cls,
+                        strategy_cls) -> bool:
+    """One proof through a transcript, a multiopen verifier and a
+    strategy; VerifyError propagates (api.verify turns it into False)."""
+    transcript = transcript_cls(params.curve, proof)
+    verifier = multiopen_verifier_cls(params)
+    queries = verify_proof(params, vk, transcript, instances,
+                           verifier.QUERY_INSTANCE)
+    return strategy_cls(params).process(
+        lambda msm: verifier.verify_proof(transcript, queries, msm))

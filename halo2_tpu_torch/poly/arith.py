@@ -54,6 +54,11 @@ def eval_polys_at_points(F: Field, requests):
     return out
 
 
+def compute_inner_product(F: Field, a, b):
+    """sum_i a_i b_i along dim -2 (arithmetic.rs:87-97)."""
+    return tree_sum(F, F.mul(a, b), dim=-2)
+
+
 def kate_division(F: Field, poly, b):
     """Divide (..., n, 8) coefficients by (X - b), dropping the remainder;
     b an encoded (8,) point.  The reverse-Horner recurrence

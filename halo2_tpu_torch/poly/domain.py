@@ -71,6 +71,28 @@ class EvaluationDomain:
                                for z in (1, self.g_coset_inv, self.g_coset))
 
     # ------------------------------------------------------------------
+    # constructors (raw (..., n, 8) tensors, as the reference returns)
+    # ------------------------------------------------------------------
+
+    def empty_lagrange(self, batch=()):
+        return self.F.zeros(tuple(batch) + (self.n,), self.device)
+
+    def empty_coeff(self, batch=()):
+        return self.F.zeros(tuple(batch) + (self.n,), self.device)
+
+    def empty_extended(self, batch=()):
+        return self.F.zeros(tuple(batch) + (self.extended_n,), self.device)
+
+    def constant_lagrange(self, x: int):
+        return self.F.full((self.n,), x, self.device)
+
+    def constant_extended(self, x: int):
+        return self.F.full((self.extended_n,), x, self.device)
+
+    def get_quotient_poly_degree(self) -> int:
+        return self.quotient_poly_degree
+
+    # ------------------------------------------------------------------
     # transforms (batched over leading dims; polynomial axis -2)
     # ------------------------------------------------------------------
 
@@ -139,6 +161,11 @@ class EvaluationDomain:
         shift = (1 << (self.extended_k - self.k)) * rotation.i
         out = torch.roll(a, -shift, dims=-2)
         return Poly.extended(out) if typed else out
+
+    def rotate_lagrange(self, a, rotation):
+        a, typed = take(a, LAGRANGE, "rotate_lagrange")
+        out = torch.roll(a, -rotation.i, dims=-2)
+        return Poly.lagrange(out) if typed else out
 
     # ------------------------------------------------------------------
     # host-side scalar helpers

@@ -1,7 +1,7 @@
 """Kernels A-D, 8-15, kernel B's chains and the ordering pass of
 halo2_tpu_torch (BN254 and Pasta instances) against their plain PyTorch
-versions on a CUDA device, and GPU proofs (KZG and IPA) against CPU
-proofs.  Every test needs the card and skips without one.  The file
+versions on a CUDA device, and GPU proofs (KZG / SHPLONK, IPA, and the
+shuffle circuit on KZG / GWC / Keccak256) against CPU proofs.  Every test needs the card and skips without one.  The file
 imports nothing of JAX, so on a machine without JAX run it as
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -17,7 +17,8 @@ import torch
 from halo2_tpu_torch import api
 from halo2_tpu_torch.commit import (ParamsIPA, ParamsKZG, ProverSHPLONK,
                                     SingleStrategyKZG, VerifierSHPLONK)
-from halo2_tpu_torch.compat import plonk_api
+from halo2_tpu_torch.compat import plonk_api, shuffle_api
+from halo2_tpu_torch.config import ProofConfig
 from halo2_tpu_torch.curves import BN254_G1 as C, PALLAS, VESTA, cuda_ec
 from halo2_tpu_torch.fields import (BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ,
                                     cuda_ops)
@@ -333,6 +334,20 @@ def test_gpu_ipa_proof_equals_cpu_proof(cuda):
         proofs.append(api.create_proof(params, pk, [circuit], [inst],
                                        random.Random(1)))
         assert api.verify(params, pk.vk, proofs[-1], [inst])
+    assert proofs[0] == proofs[1]
+
+
+def test_gpu_shuffle_gwc_keccak_proof_equals_cpu_proof(cuda):
+    circuit, kg_circuit, _ = shuffle_api.shuffle_instance(8)
+    proofs = []
+    for dev in ("cpu", cuda):
+        cfg = ProofConfig(k=8, scheme="kzg-gwc", transcript="keccak256",
+                          device=str(dev))
+        params = cfg.params()
+        pk = cfg.keygen(kg_circuit, params=params)
+        proofs.append(cfg.prove(pk, [circuit], [[]], random.Random(1),
+                                params=params))
+        assert cfg.verify(pk.vk, proofs[-1], [[]], params=params)
     assert proofs[0] == proofs[1]
 
 

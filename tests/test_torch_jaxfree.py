@@ -22,7 +22,8 @@ torch.set_num_threads(1)
 from halo2_tpu_torch import api
 from halo2_tpu_torch.commit import (ParamsIPA, ParamsKZG, ProverSHPLONK,
                                     SingleStrategyKZG, VerifierSHPLONK)
-from halo2_tpu_torch.compat import plonk_api
+from halo2_tpu_torch.compat import plonk_api, shuffle_api
+from halo2_tpu_torch.config import ProofConfig
 from halo2_tpu_torch.curves import VESTA
 from halo2_tpu_torch.fields import BN254_FR, PASTA_FP
 

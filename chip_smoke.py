@@ -7,26 +7,41 @@ them, and each of their BN254 and Pasta instances, against its plain
 PyTorch version on the card word for word.  Proves on the CPU (plain
 versions) and on the GPU (kernels) and requires equal proof bytes: KZG
 plonk_api at k=8, IPA/Vesta plonk_api at k=6, and the shuffle and
-two-phase circuits at k=8 on KZG / GWC / Keccak256.  Then it drives seven
+two-phase circuits at k=8 on KZG / GWC / Keccak256.  Then it drives eleven
 main paths, each with the launch counts set to 0 just before it and read
 just after:
 
   k=18 plonk_api, KZG / SHPLONK  (kernels A, B, C, D, the ordering pass)
+  serde k=18 on that path's keys: the VK in every SerdeFormat, the PK in
+       RAW_BYTES and PROCESSED and the params written and read back onto
+       the card, equal; a PK element >= p refused; a prove with the read
+       keys equal to the path's first proof byte for byte  (A, B's add, C,
+       the ordering pass, D)
+  middleware k=18: keygen from the JSON contract equal to the path's keys
+       (A, B's add, C, the ordering pass, D)
+  mock k=18: the MockProver on the card, plonk_api (its instance and the
+       instance + 1), the shuffle circuit (honest, not a permutation) and
+       the two-phase circuit (a phase-2 cell off by one at row 0)  (A)
   k=18 shuffle (shuffle_api.rs's circuit), KZG / GWC / Keccak256, and
   k=18 two-phase, KZG / SHPLONK / Keccak256, both through ProofConfig on
        the plonk_api path's params and tables  (A, B's add, C, D, the
        ordering pass)
   k=20 lookup_heavy, KZG / SHPLONK, on the unbaked table (kernel 8)
   k=14 plonk_api, IPA / Vesta, opening MSMs on the segmented scan (kernel 9)
+  batch IPA k=14 on that path's keys: a BatchVerifier accepting three
+       honest proofs and refusing them with one tampered  (A, the ordering
+       pass, D)
   bench micro k=18: the port bench's micro stage (MSM, NTT, kernel 10)
   probes: the ALU, gather and transpose probes (kernels 10-15)
 
-the first five each with params (the shuffle and two-phase paths reuse
+the five proving paths (plonk_api, shuffle and two-phase at k=18,
+lookup_heavy, IPA) each with params (the shuffle and two-phase paths reuse
 the k=18 ones), keygen, a first and steady proves with their step tables,
 verify, and a tampered proof that must be rejected (the shuffle path also
 a non-permutation witness, the two-phase path a phase-2 cell off by
 one), then one profiled prove (device busy and idle
-share; not on lookup_heavy).  The ordering pass and
+share; not on lookup_heavy).  The cost model's proof sizes are printed
+beside the real proofs' of the k=18 KZG and k=14 IPA paths.  The ordering pass and
 kernel D are held against their plain versions at the k=18 table, the
 ordering pass and kernel 8 at the k=20 one, for random, 16-bit, zero,
 equal and one-bucket scalars; both are timed on random scalars and on the
@@ -163,9 +178,15 @@ def main() -> int:
 
     counts = {}
     with phase(f"KZG plonk_api k={K_MAIN}", walls):
-        path = run_kzg_plonk_api(torch, dev, counts)
+        path, kzg_proof = run_kzg_plonk_api(torch, dev, counts)
     with phase(f"ordering pass and kernel D at k={K_MAIN}", walls):
         check_stream_main(torch, *path, bound, results)
+    with phase(f"serde k={K_MAIN}", walls):
+        check_serde(torch, *path, kzg_proof, counts)
+    with phase(f"middleware k={K_MAIN}", walls):
+        check_middleware(torch, *path, counts)
+    with phase(f"mock k={K_MAIN}", walls):
+        check_mock(torch, dev, counts)
     for name in CONFIG_PATHS:
         with phase(f"KZG {name} k={K_MAIN}", walls):
             run_config_path(torch, path[0], counts, name)
@@ -178,10 +199,13 @@ def main() -> int:
         check_unbaked_vs_baked(torch, path[0])
     del path
     with phase(f"IPA plonk_api k={K_IPA}", walls):
-        params, pk, circuit, inst = run_ipa(torch, dev, counts)
+        (params, pk, circuit, inst), ipa_proof = run_ipa(torch, dev, counts)
     with phase(f"kernels D and 9 at the k={K_IPA} prove's calls", walls):
         check_ipa_main(torch, params, pk, circuit, inst, bound, results)
+    with phase(f"batch IPA k={K_IPA}", walls):
+        check_batch(torch, params, pk, circuit, inst, counts)
     del params, pk
+    log_cost_model(len(kzg_proof), len(ipa_proof))
     with phase(f"bench micro k={K_MAIN}", walls):
         run_bench_micro(torch, dev, counts)
     with phase("kernel 10 at 2^21", walls):
@@ -939,7 +963,7 @@ def prove_verify(torch, tag, cfg, params, pk, circuit, inst, n_steady,
     """Through ProofConfig `cfg` on `params`: a first and n_steady steady
     proves with their step tables, verify, a tampered proof that must be
     rejected and, where given, a proof of a bad witness that must be
-    rejected too."""
+    rejected too.  Returns the first proof (random.Random(1))."""
     steady = []
     for seed, run in enumerate(["first"] + ["steady"] * n_steady, start=1):
         timings = {}
@@ -950,6 +974,8 @@ def prove_verify(torch, tag, cfg, params, pk, circuit, inst, n_steady,
         wall = time.time() - t0
         if run == "steady":
             steady.append(wall)
+        else:
+            first = proof
         steps = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
         log(f"[{tag}] prove ({run}) {wall:.3f} s; steps: {steps}")
     log(f"[{tag}] steady prove over {n_steady} runs: median "
@@ -971,6 +997,7 @@ def prove_verify(torch, tag, cfg, params, pk, circuit, inst, n_steady,
         if cfg.verify(pk.vk, bad, [inst], params=params):
             raise AssertionError(f"{tag}: a bad witness's proof verified")
         log(f"[{tag}] the proof of a bad witness is rejected")
+    return first
 
 
 def run_path(torch, tag, counts, need, body):
@@ -1030,15 +1057,15 @@ def run_kzg_plonk_api(torch, dev, counts):
         torch.cuda.synchronize()
         log(f"[{tag}] ParamsKZG.new {t_params:.2f} s, keygen "
             f"{time.time() - t0:.2f} s")
-        prove_verify(torch, tag, cfg, params, pk, circuit, inst, N_STEADY)
-        return params, pk
+        return params, pk, prove_verify(torch, tag, cfg, params, pk,
+                                        circuit, inst, N_STEADY)
 
     cfg = _config(dev, K_MAIN)
-    params, pk = run_path(torch, tag, counts, (
+    params, pk, proof = run_path(torch, tag, counts, (
         "h2_field_binop", "h2_ec_add", "h2_ec_madd", "h2_ec_double",
         "h2_ntt_base", "h2_msm_order", "h2_stream_bucket"), body)
     profile_prove(torch, tag, cfg, params, pk, circuit, inst)
-    return params, pk, circuit, inst
+    return (params, pk, circuit, inst), proof
 
 
 def run_lookup_heavy(torch, dev, counts):
@@ -1092,17 +1119,16 @@ def run_ipa(torch, dev, counts):
         torch.cuda.synchronize()
         log(f"[{tag}] ParamsIPA.new {t_params:.2f} s (host hash-to-curve "
             f"and point NTT), keygen {time.time() - t0:.2f} s")
-        prove_verify(torch, tag, cfg, params, pk, circuit, inst,
-                     N_STEADY_BIG)
-        return params, pk
+        return params, pk, prove_verify(torch, tag, cfg, params, pk, circuit,
+                                        inst, N_STEADY_BIG)
 
     cfg = _config(dev, K_IPA, curve="vesta", scheme="ipa")
-    params, pk = run_path(torch, tag, counts, (
+    params, pk, proof = run_path(torch, tag, counts, (
         "h2_field_binop", "h2_ec_add", "h2_ec_double", "h2_ntt_base",
         "h2_msm_order", "h2_stream_bucket", "h2_scan_level",
         "h2_ec_scalar_mul", "h2_ec_horner"), body)
     profile_prove(torch, tag, cfg, params, pk, circuit, inst)
-    return params, pk, circuit, inst
+    return (params, pk, circuit, inst), proof
 
 
 def run_config_path(torch, params, counts, name):
@@ -1136,6 +1162,232 @@ def run_config_path(torch, params, counts, name):
         "h2_field_binop", "h2_ec_add", "h2_ntt_base", "h2_msm_order",
         "h2_stream_bucket"), body)
     profile_prove(torch, tag, cfg, params, pk, circuit, [])
+
+
+# ----------------------------------------------------------------------
+# serde, middleware, MockProver and batch verification on the paths' keys
+# ----------------------------------------------------------------------
+
+PK_TENSORS = ("l0", "l_last", "l_active_row", "fixed_values", "fixed_polys",
+              "fixed_cosets")
+PERM_TENSORS = ("permutations", "polys", "cosets")
+
+
+def timed(torch, fn):
+    """(fn(), its seconds), the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def check_keys_equal(torch, tag, pk, other):
+    """The verifying keys' pinned form and hash, and every tensor of the
+    proving keys, equal."""
+    if (other.vk.pinned() != pk.vk.pinned()
+            or other.vk.transcript_repr != pk.vk.transcript_repr):
+        raise AssertionError(f"{tag}: verifying keys differ")
+    differ = [n for n in PK_TENSORS
+              if not torch.equal(getattr(other, n), getattr(pk, n))]
+    differ += [n for n in PERM_TENSORS
+               if not torch.equal(getattr(other.permutation, n),
+                                  getattr(pk.permutation, n))]
+    if differ:
+        raise AssertionError(f"{tag}: proving key tensors differ: {differ}")
+
+
+def check_serde(torch, params, pk, circuit, inst, proof, counts):
+    """The k=18 plonk_api path's keys and params written and read back onto
+    the card: the VK in every format, the PK in RAW_BYTES and PROCESSED,
+    the params in ParamsKZG.write's default RAW_BYTES; a RAW_BYTES PK with
+    one element >= p refused; then a prove with the read params and PK
+    under the path's first seed, which must give the path's first proof
+    byte for byte, and verify."""
+    from halo2_tpu_torch.commit import ParamsKZG
+    from halo2_tpu_torch.compat import (SerdeFormat, pk_read, pk_write,
+                                        vk_read, vk_write)
+    from halo2_tpu_torch.fields import BN254_FR as F
+    tag = f"serde k={K_MAIN}"
+    cfg = _config(params.device, K_MAIN)
+
+    def rate(nbytes, secs):
+        return f"{secs:.3f} s ({nbytes / secs / 1e9:.2f} GB/s)"
+
+    def body():
+        for fmt in SerdeFormat:
+            data, t_w = timed(torch, lambda: vk_write(pk.vk, fmt))
+            vk, t_r = timed(torch, lambda: vk_read(F, params, K_MAIN, circuit,
+                                                   data, fmt))
+            if (vk.pinned() != pk.vk.pinned()
+                    or vk.transcript_repr != pk.vk.transcript_repr):
+                raise AssertionError(f"{tag}: VK {fmt.name} read back differs")
+            log(f"[{tag}] vk {fmt.name}: {len(data)} bytes, write "
+                f"{t_w:.4f} s, read {t_r:.3f} s (with the circuit's compile)")
+        read = {}
+        for fmt in (SerdeFormat.RAW_BYTES, SerdeFormat.PROCESSED):
+            data, t_w = timed(torch, lambda: pk_write(pk, fmt))
+            back, t_r = timed(torch, lambda: pk_read(F, params, K_MAIN,
+                                                     circuit, data, fmt))
+            check_keys_equal(torch, f"{tag} pk {fmt.name}", pk, back)
+            log(f"[{tag}] pk {fmt.name}: {len(data)} bytes, write "
+                f"{rate(len(data), t_w)}, read {rate(len(data), t_r)}")
+            read[fmt] = back
+            if fmt == SerdeFormat.RAW_BYTES:
+                bad = bytearray(data)
+                # the top byte of l0's first element: >= p
+                bad[len(vk_write(pk.vk, fmt)) + 4 + 31] = 0xFF
+                try:
+                    pk_read(F, params, K_MAIN, circuit, bytes(bad), fmt)
+                except ValueError as e:
+                    log(f"[{tag}] pk RAW_BYTES with an element >= p refused: "
+                        f"{e}")
+                else:
+                    raise AssertionError(f"{tag}: an element >= p was read")
+                del bad
+            del data
+        del read[SerdeFormat.RAW_BYTES]
+        data, t_w = timed(torch, params.write)
+        back, t_r = timed(torch, lambda: ParamsKZG.read(
+            data, s_secret=params.s_secret, device=params.device))
+        if not (torch.equal(back.g, params.g)
+                and torch.equal(back.g_lagrange, params.g_lagrange)
+                and (back.g2, back.s_g2) == (params.g2, params.s_g2)):
+            raise AssertionError(f"{tag}: params read back differ")
+        log(f"[{tag}] params RAW_BYTES: {len(data)} bytes, write "
+            f"{rate(len(data), t_w)}, read {rate(len(data), t_r)} (range "
+            f"and curve checks of {2 * params.n} points)")
+        pk2 = read[SerdeFormat.PROCESSED]
+        again, t_p = timed(torch, lambda: cfg.prove(
+            pk2, [circuit], [inst], random.Random(1), params=back))
+        if again != proof:
+            raise AssertionError(f"{tag}: the proof from read keys differs")
+        if not cfg.verify(pk2.vk, again, [inst], params=back):
+            raise AssertionError(f"{tag}: the proof from read keys failed")
+        log(f"[{tag}] prove with the read params and PK {t_p:.3f} s (tables "
+            f"baked anew): the path's first proof byte for byte; verifies")
+
+    run_path(torch, tag, counts, (
+        "h2_field_binop", "h2_ec_add", "h2_ntt_base", "h2_msm_order",
+        "h2_stream_bucket"), body)
+
+
+def check_middleware(torch, params, pk, circuit, inst, counts):
+    """plonk_api at k=18 through the middleware contract: compile ->
+    compiled_to_mid -> JSON -> from_json -> keygen on the path's params,
+    which must give the path's keys."""
+    from halo2_tpu_torch.fields import BN254_FR as F
+    from halo2_tpu_torch.frontend import compile_circuit
+    from halo2_tpu_torch.middleware import CompiledCircuitMid, compiled_to_mid
+    from halo2_tpu_torch.plonk import keygen
+    tag = f"middleware k={K_MAIN}"
+
+    def body():
+        text, t_j = timed(torch, lambda: compiled_to_mid(compile_circuit(
+            F, K_MAIN, circuit)[0]).to_json())
+        mid, t_r = timed(torch, lambda: CompiledCircuitMid.from_json(text))
+        pk2, t_k = timed(torch, lambda: keygen(
+            F, params, mid.to_compiled_circuit(), K_MAIN))
+        check_keys_equal(torch, tag, pk, pk2)
+        log(f"[{tag}] compile + to_json {t_j:.2f} s ({len(text)} "
+            f"characters), from_json {t_r:.2f} s, keygen {t_k:.2f} s: the "
+            f"path's keys")
+
+    run_path(torch, tag, counts, (
+        "h2_field_binop", "h2_ec_add", "h2_ntt_base", "h2_msm_order",
+        "h2_stream_bucket"), body)
+
+
+def check_mock(torch, dev, counts):
+    """The MockProver at k=18 on the card: plonk_api with its instance (no
+    failure) and with the instance + 1 (a gate failure: its public input
+    enters through the 'Public input' gate), the shuffle circuit's honest
+    witness (none) and its non-permutation (a shuffle failure), and the
+    two-phase circuit's phase-2 cell off by one at row 0 (a gate failure
+    at that row alone)."""
+    from halo2_tpu_torch.compat import plonk_api, shuffle_api
+    from halo2_tpu_torch.dev import MockProver
+    from halo2_tpu_torch.fields import BN254_FR as F
+    tag = f"mock k={K_MAIN}"
+    circuit, inst = plonk_api.plonk_api_instance(F)
+    shuffle, _, no_shuffle = shuffle_api.shuffle_instance(K_MAIN)
+    _, _, bad_phase = shuffle_api.phase_instance(K_MAIN)
+    cases = [("plonk_api", circuit, inst, []),
+             ("plonk_api, instance + 1", circuit,
+              [[v + 1 for v in col] for col in inst], ["gate"]),
+             ("shuffle", shuffle, [], []),
+             ("shuffle, no permutation", no_shuffle, [], ["shuffle"]),
+             ("phase, row 0 off by one", bad_phase, [], ["gate"])]
+
+    def body():
+        for name, c, i, want in cases:
+            t0 = time.time()
+            prover = MockProver.run(F, K_MAIN, c, i, device=dev)
+            failures = prover.verify()
+            wall = time.time() - t0
+            kinds = [f.kind for f in failures]
+            if kinds != want:
+                raise AssertionError(f"{tag} {name}: failures {failures}")
+            if name.startswith("phase") and not failures[0].detail.endswith(
+                    "at rows [0]"):
+                raise AssertionError(f"{tag} {name}: {failures[0].detail}")
+            steps = ", ".join(f"{k} {v:.3f}"
+                              for k, v in prover.timings.items())
+            log(f"[{tag}] {name}: {kinds or 'satisfied'} in {wall:.3f} s; "
+                f"steps: {steps}" + (f"; {failures[0].detail}"
+                                     if failures else ""))
+
+    run_path(torch, tag, counts, ("h2_field_binop",), body)
+
+
+def check_batch(torch, params, pk, circuit, inst, counts):
+    """The IPA k=14 path's keys: three honest proofs (made before the
+    counts are reset) through one BatchVerifier, which must accept them,
+    and with one of them tampered, which it must refuse; beside it, the
+    three verified one by one."""
+    from halo2_tpu_torch.plonk import BatchVerifier
+    tag = f"batch IPA k={K_IPA}"
+    cfg = _config(params.device, K_IPA, curve="vesta", scheme="ipa")
+    proofs = [cfg.prove(pk, [circuit], [inst], random.Random(seed),
+                        params=params) for seed in (11, 12, 13)]
+    bad = bytearray(proofs[1])
+    bad[len(bad) // 2] ^= 1
+
+    def batch(items):
+        b = BatchVerifier(random.Random(5))
+        for proof in items:
+            b.add_proof([inst], proof)
+        return b.finalize(params, pk.vk)
+
+    def body():
+        singles, t_s = timed(torch, lambda: [
+            cfg.verify(pk.vk, p, [inst], params=params) for p in proofs])
+        ok, t_b = timed(torch, lambda: batch(proofs))
+        refused, t_r = timed(torch, lambda: not batch(
+            [proofs[0], bytes(bad), proofs[2]]))
+        log(f"[{tag}] three single verifies {t_s:.3f} s ({singles}); "
+            f"batch finalize {t_b:.3f} s ({ok}); with one tampered "
+            f"{t_r:.3f} s (refused {refused})")
+        if not (all(singles) and ok and refused):
+            raise AssertionError(f"{tag}: batch verification failed")
+
+    run_path(torch, tag, counts, ("h2_field_binop", "h2_msm_order",
+                                  "h2_stream_bucket"), body)
+
+
+def log_cost_model(kzg_len: int, ipa_len: int):
+    """The cost model's proof sizes beside the real proofs' (an estimate,
+    printed, not checked)."""
+    from halo2_tpu_torch.compat import plonk_api
+    from halo2_tpu_torch.dev import CircuitCost
+    from halo2_tpu_torch.fields import BN254_FR, PASTA_FP
+    kzg = CircuitCost.measure(K_MAIN, plonk_api.plonk_api_instance(
+        BN254_FR)[0]).proof_size("kzg-shplonk")
+    ipa = CircuitCost.measure(K_IPA, plonk_api.plonk_api_instance(
+        PASTA_FP)[0]).proof_size("ipa")
+    log(f"[cost model] plonk_api k={K_MAIN} kzg-shplonk: model {kzg} bytes, "
+        f"proof {kzg_len}; k={K_IPA} ipa: model {ipa} bytes, proof "
+        f"{ipa_len}")
 
 
 def profile_prove(torch, tag, cfg, params, pk, circuit, inst):

@@ -15,6 +15,12 @@ Hopper kernels in `csrc/` carry the device work:
 
 and the probes' kernels 10-15 (alu.cu, move.cu; tools/).
 
+Around the prover, as in the reference: key and params serde
+(`compat/serde.py`), the middleware contract (`middleware.py`), the IPA
+batch verifier (`plonk/batch.py`), the dev tools (`dev/`: MockProver,
+cost model, gates, layout, tracing planner) and the examples
+(`examples/`).
+
 Each kernel has a plain PyTorch version beside it, taken for CPU tensors.
 The package imports no JAX and keeps its own copy of the host code it
 needs (frontend/, native/, compat/, msm/host_msm.py, plonk/errors.py).

@@ -14,6 +14,7 @@ reference marks `setup`); params without s use the real pairing.
 from __future__ import annotations
 
 import random
+import struct
 from typing import List, Optional
 
 import torch
@@ -120,6 +121,35 @@ class ParamsKZG:
         return ParamsKZG(k, g, curve.from_affine_coords(
             curve.batch_normalize(gl), curve.is_identity(gl)),
             self.g2, self.s_g2, s_secret=self.s_secret)
+
+    # -- serde (kzg/commitment.rs:167-267 layout; write() defaults to
+    # RawBytes like the reference's ParamsProver::write at :320-322) -----
+
+    def write(self, fmt=None) -> bytes:
+        """[k: u32 LE] g ‖ g_lagrange ‖ g2 ‖ s_g2; the 2^(k+1) points in
+        one device pass."""
+        from ..compat.serde import SerdeFormat, _write_g2, points_to_bytes
+        fmt = fmt or SerdeFormat.RAW_BYTES
+        return b"".join([
+            struct.pack("<I", self.k),
+            points_to_bytes(self.curve, torch.cat([self.g, self.g_lagrange]),
+                            fmt),
+            _write_g2(self.g2, fmt), _write_g2(self.s_g2, fmt)])
+
+    @staticmethod
+    def read(data: bytes, fmt=None, s_secret=None,
+             device="cuda") -> "ParamsKZG":
+        """The inverse of `write`, onto `device`; a RAW_BYTES read checks
+        every point's range and curve equation in one batched pass."""
+        from ..compat.serde import SerdeFormat, _read_g2, points_from_bytes
+        device = resolve_device(device)
+        fmt = fmt or SerdeFormat.RAW_BYTES
+        k = struct.unpack("<I", data[:4])[0]
+        n = 1 << k
+        pts, off = points_from_bytes(BN254_G1, data, 4, 2 * n, fmt, device)
+        g2, off = _read_g2(data, off, fmt)
+        s_g2, off = _read_g2(data, off, fmt)
+        return ParamsKZG(k, pts[:n], pts[n:], g2, s_g2, s_secret=s_secret)
 
     # -- commitments (the blind is unused: KZG hides with the random poly)
 

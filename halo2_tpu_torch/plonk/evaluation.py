@@ -11,16 +11,21 @@ from ..frontend.expression import ADVICE, FIXED, INSTANCE
 
 
 def evaluate_expression(F: Field, expr, *, fixed, advice, instance,
-                        challenges, device, rot_scale: int = 1):
+                        challenges, device, rot_scale: int = 1,
+                        selectors=None):
     """Evaluate `expr` over every row.  fixed / advice / instance:
     (num_cols, rows, 8) tensors; challenges: {index: encoded (8,)};
     rot_scale: rows per unit rotation (2^(extended_k - k) on the extended
-    domain).  Returns (rows, 8) (or a broadcastable (8,) for constants)."""
+    domain); selectors: (num_selectors, rows, 8) for circuits whose
+    selectors are not yet converted to fixed columns (the MockProver).
+    Returns (rows, 8) (or a broadcastable (8,) for constants)."""
     kind_map = {FIXED: fixed, ADVICE: advice, INSTANCE: instance}
 
     def selector_fn(s):
-        raise AssertionError(
-            "selectors must be converted to fixed columns before evaluation")
+        if selectors is None:
+            raise AssertionError("selectors must be converted to fixed "
+                                 "columns before evaluation")
+        return selectors[s.index]
 
     def query_fn(column, rotation):
         col = kind_map[column.kind][column.index]

@@ -1,7 +1,9 @@
 """Kernels A-D, 8-15, kernel B's chains and the ordering pass of
 halo2_tpu_torch (BN254 and Pasta instances) against their plain PyTorch
 versions on a CUDA device, and GPU proofs (KZG / SHPLONK, IPA, and the
-shuffle circuit on KZG / GWC / Keccak256) against CPU proofs.  Every test needs the card and skips without one.  The file
+shuffle circuit on KZG / GWC / Keccak256) against CPU proofs; key and
+params serde and the MockProver on the card against the CPU.  Every test
+needs the card and skips without one.  The file
 imports nothing of JAX, so on a machine without JAX run it as
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
@@ -17,9 +19,12 @@ import torch
 from halo2_tpu_torch import api
 from halo2_tpu_torch.commit import (ParamsIPA, ParamsKZG, ProverSHPLONK,
                                     SingleStrategyKZG, VerifierSHPLONK)
-from halo2_tpu_torch.compat import plonk_api, shuffle_api
+from halo2_tpu_torch.compat import (SerdeFormat, pk_read, pk_write,
+                                    plonk_api, shuffle_api, vk_read,
+                                    vk_write)
 from halo2_tpu_torch.config import ProofConfig
 from halo2_tpu_torch.curves import BN254_G1 as C, PALLAS, VESTA, cuda_ec
+from halo2_tpu_torch.dev import MockProver
 from halo2_tpu_torch.fields import (BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ,
                                     cuda_ops)
 from halo2_tpu_torch.msm import StreamMSM, msm, naive_msm
@@ -378,3 +383,56 @@ def test_kernels_13_15_match_plain(cuda):
         x = alu_probe.random_u32(shape, 18, cuda)
         for fn in (transpose_probe.limb_T_fwd, transpose_probe.limb_T_bwd):
             assert torch.equal(fn(x), transpose_probe.transpose_plain(x))
+
+
+def test_gpu_serde_equals_cpu(cuda):
+    """plonk_api's KZG keys and params at k=8 written on the card give the
+    CPU's bytes in every format, and read back onto the card equal."""
+    F = BN254_FR
+    circuit, _ = plonk_api.plonk_api_instance(F)
+    keys = {}
+    for dev in ("cpu", cuda):
+        params = ParamsKZG.new(8, device=dev)
+        keys[str(dev)] = (params, api.keygen(F, params, 8, circuit))
+    (cpu_params, cpu_pk), (params, pk) = keys["cpu"], keys[str(cuda)]
+    for fmt in SerdeFormat:
+        data = pk_write(pk, fmt)
+        assert data == pk_write(cpu_pk, fmt)
+        assert vk_write(pk.vk, fmt) == vk_write(cpu_pk.vk, fmt)
+        back = pk_read(F, params, 8, circuit, data, fmt)
+        assert back.vk.pinned() == pk.vk.pinned()
+        for name in ("l0", "l_last", "l_active_row", "fixed_values",
+                     "fixed_polys", "fixed_cosets"):
+            assert torch.equal(getattr(back, name), getattr(pk, name))
+        for name in ("permutations", "polys", "cosets"):
+            assert torch.equal(getattr(back.permutation, name),
+                               getattr(pk.permutation, name))
+        assert vk_read(F, params, 8, circuit, vk_write(pk.vk, fmt),
+                       fmt).transcript_repr == pk.vk.transcript_repr
+        blob = params.write(fmt)
+        assert blob == cpu_params.write(fmt)
+        back = ParamsKZG.read(blob, fmt, device=cuda)
+        assert torch.equal(back.g, params.g)
+        assert torch.equal(back.g_lagrange, params.g_lagrange)
+
+
+def test_gpu_mock_prover_equals_cpu(cuda):
+    """The MockProver's failures on the card equal the CPU's at k=8:
+    plonk_api with its instance and with the instance + 1, the shuffle and
+    the two-phase circuits with good and bad witnesses."""
+    circuit, inst = plonk_api.plonk_api_instance(BN254_FR)
+    cases = [(BN254_FR, circuit, inst),
+             (BN254_FR, circuit, [[v + 1 for v in col] for col in inst])]
+    for name in ("shuffle", "phase"):
+        good, _, bad = getattr(shuffle_api, f"{name}_instance")(8)
+        cases += [(BN254_FR, good, []), (BN254_FR, bad, [])]
+    kinds = []
+    for F, circuit, inst in cases:
+        runs = [[(f.kind, f.detail, str(f.location), f.cell_values)
+                 for f in MockProver.run(F, 8, circuit, inst,
+                                         device=dev).verify()]
+                for dev in ("cpu", cuda)]
+        assert runs[0] == runs[1]
+        kinds.append(sorted({f[0] for f in runs[1]}))
+    # plonk_api's instance enters through its 'Public input' gate
+    assert kinds == [[], ["gate"], [], ["shuffle"], [], ["gate"]]

@@ -2,10 +2,13 @@
 against the JAX reference at k=5 on plonk_api: equal parameters, the Rust
 golden pinned verifying key byte for byte, byte-identical proofs under
 random.Random(1), and each package verifying the other's proof (and
-rejecting a tampered one)."""
+rejecting a tampered one).  Last, the port's BatchVerifier: the two batch
+tests of test_dev_tools.py ported to this circuit, and the reference's
+proof accepted in a batch."""
 
 import os
 import random
+from unittest import mock
 
 import pytest
 import torch
@@ -21,6 +24,8 @@ from halo2_tpu_torch.compat import plonk_api
 from halo2_tpu_torch.compat.from_jax import params_ipa_from_jax
 from halo2_tpu_torch.curves import VESTA
 from halo2_tpu_torch.fields import PASTA_FP as F
+from halo2_tpu_torch.plonk import BatchVerifier
+from halo2_tpu_torch.plonk import batch as batch_mod
 
 # The plain versions run many small tensor ops: one thread per worker
 # is as fast and leaves the other cores to the other test workers.
@@ -124,3 +129,62 @@ def test_accumulator_strategy_folds_proofs(port):
             strategy.process(
                 lambda m: VerifierIPA(params).verify_proof(t, queries, m))
         assert strategy.finalize() is want
+
+
+def _batch(params, vk, proofs, inst, seed=0) -> bool:
+    batch = BatchVerifier(random.Random(seed))
+    for proof in proofs:
+        batch.add_proof([inst], proof)
+    return batch.finalize(params, vk)
+
+
+def test_batch_verifier(port):
+    """Two honest proofs pass as a batch; with one tampered, cut short or
+    empty (the port's VerifyError), the batch fails."""
+    params, pk, proof, inst = port
+    circuit, _ = plonk_api.plonk_api_instance(F)
+    other = api.create_proof(params, pk, [circuit], [inst], random.Random(12))
+    assert _batch(params, pk.vk, [proof, other], inst)
+    assert not _batch(params, pk.vk, [proof, _tampered(other, 50)], inst)
+    assert not _batch(params, pk.vk, [proof, other[:-32]], inst)
+    assert not _batch(params, pk.vk, [proof, b""], inst)
+
+
+def test_batch_verifier_accepts_the_reference_proof(ref, port):
+    params, pk, proof, inst = port
+    assert _batch(params, pk.vk, [ref[2], proof, ref[2]], inst, seed=5)
+
+
+def test_batch_verifier_canceling_errors(port):
+    """batch.rs:96-106: the accumulator is rescaled by a fresh random
+    factor before each proof's MSM folds in, so two stub guards whose MSMs
+    cancel ([s]W and [-s]W) do not pass as a valid batch."""
+    params, pk, _, _ = port
+    errors = [12345, params.curve.Fr.p - 12345]
+
+    class FakeGuard:
+        def __init__(self, scalar):
+            self.scalar = scalar
+
+        def use_challenges(self):
+            m = params.empty_msm()
+            m.append_term(self.scalar, params.w_aff)
+            return m
+
+    class FakeVerifier:
+        QUERY_INSTANCE = True
+
+        def __init__(self, _params):
+            pass
+
+        def verify_proof(self, transcript, queries, msm):
+            assert not msm.terms and msm.g_scalars is None
+            return FakeGuard(errors.pop(0))
+
+    batch = BatchVerifier(random.Random(7))
+    batch.add_proof([], b"")
+    batch.add_proof([], b"")
+    with mock.patch.object(batch_mod, "VerifierIPA", FakeVerifier), \
+            mock.patch.object(batch_mod, "backend_verify_queries",
+                              lambda *a, **k: []):
+        assert not batch.finalize(params, pk.vk)

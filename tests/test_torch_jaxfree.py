@@ -1,9 +1,10 @@
 """halo2_tpu_torch stands alone: a fresh interpreter with `jax` and the JAX
-package `halo2_tpu` both blocked imports the port, proves plonk_api with
+package `halo2_tpu` both blocked imports the port (its dev tools,
+middleware, serde, batch verifier and examples too), proves plonk_api with
 KZG / SHPLONK and with IPA over Vesta at k=5 (the smallest k plonk_api
-fits) on the CPU, verifies
-both proofs and rejects tampered ones; and no file of the port or of
-chip_smoke.py names the JAX package."""
+fits) on the CPU, verifies both proofs and rejects tampered ones, runs the
+MockProver and a vk_write / vk_read round trip; and no file of the port or
+of chip_smoke.py names the JAX package."""
 
 import os
 import re
@@ -23,9 +24,17 @@ from halo2_tpu_torch import api
 from halo2_tpu_torch.commit import (ParamsIPA, ParamsKZG, ProverSHPLONK,
                                     SingleStrategyKZG, VerifierSHPLONK)
 from halo2_tpu_torch.compat import plonk_api, shuffle_api
+from halo2_tpu_torch.compat.serde import SerdeFormat, vk_read, vk_write
 from halo2_tpu_torch.config import ProofConfig
 from halo2_tpu_torch.curves import VESTA
+from halo2_tpu_torch.dev import MockProver
 from halo2_tpu_torch.fields import BN254_FR, PASTA_FP
+import halo2_tpu_torch.examples.circuit_layout
+import halo2_tpu_torch.examples.proof_size
+import halo2_tpu_torch.examples.two_chip
+import halo2_tpu_torch.examples.vector_mul
+import halo2_tpu_torch.middleware
+import halo2_tpu_torch.plonk.batch
 
 def run(F, params, k, **kw):
     circuit, inst = plonk_api.plonk_api_instance(F)
@@ -38,6 +47,10 @@ def run(F, params, k, **kw):
     bad[100] ^= 1
     ok = api.verify(params, pk.vk, proof, [inst], **vkw)
     rejected = not api.verify(params, pk.vk, bytes(bad), [inst], **vkw)
+    fmt = SerdeFormat.RAW_BYTES
+    vk = vk_read(F, params, k, circuit, vk_write(pk.vk, fmt), fmt)
+    assert vk.pinned() == pk.vk.pinned()
+    assert MockProver.run(F, k, circuit, inst, device="cpu").verify() == []
     return ok, rejected, len(proof)
 
 kzg = run(BN254_FR, ParamsKZG.new(5, device="cpu"), 5,

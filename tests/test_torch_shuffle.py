@@ -14,6 +14,7 @@ PhaseEqualityCircuit instead."""
 
 import random
 
+import jax
 import pytest
 import torch
 
@@ -75,7 +76,11 @@ def _port_circuit(name, bad=False):
 
 @pytest.fixture(scope="module")
 def ref():
-    """Per case: (config, params, pk, proof, bad witness's proof)."""
+    """Per case: (config, params, pk, proof, bad witness's proof).  The JIT
+    caches are dropped after each case: XLA:CPU segfaults when one process
+    holds too many live executables (see tests/conftest.py), and these three
+    cases' keygens and proves, with the verifiers after them, were enough to
+    kill the test worker in a fresh HOME."""
     ipa = RefProofConfig(k=K, curve="vesta", scheme="ipa")
     kzg = RefProofConfig(k=K, curve="bn254", scheme="kzg-gwc",
                          transcript="keccak256")
@@ -91,6 +96,7 @@ def ref():
         bad = cfg.prove(pk, [_ref_circuit(name, bad=True)], [[]],
                         random.Random(bad_seed), params=prm)
         out[case] = (cfg, prm, pk, proof, bad)
+        jax.clear_caches()
     return out
 
 
@@ -134,12 +140,16 @@ def test_proof_bytes_identical(ref, port, case):
 def test_each_package_verifies_the_other(ref, port, case):
     cfg, params, pk, proof, _ = port[case]
     rcfg, rparams, rpk, rproof, _ = ref[case]
-    assert cfg.verify(pk.vk, rproof, [[]], params=params)
-    assert rcfg.verify(rpk.vk, proof, [[]], params=rparams)
+    assert cfg.verify(pk.vk, rproof, [[]], params=params), \
+        "the port rejects the reference's proof"
+    assert rcfg.verify(rpk.vk, proof, [[]], params=rparams), \
+        "the reference rejects the port's proof"
     bad = bytearray(proof)
     bad[len(bad) // 2] ^= 1
-    assert not cfg.verify(pk.vk, bytes(bad), [[]], params=params)
-    assert not rcfg.verify(rpk.vk, bytes(bad), [[]], params=rparams)
+    assert not cfg.verify(pk.vk, bytes(bad), [[]], params=params), \
+        "the port accepts a tampered proof"
+    assert not rcfg.verify(rpk.vk, bytes(bad), [[]], params=rparams), \
+        "the reference accepts a tampered proof"
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -7,7 +7,7 @@ them, and each of their BN254 and Pasta instances, against its plain
 PyTorch version on the card word for word.  Proves on the CPU (plain
 versions) and on the GPU (kernels) and requires equal proof bytes: KZG
 plonk_api at k=8, IPA/Vesta plonk_api at k=6, and the shuffle and
-two-phase circuits at k=8 on KZG / GWC / Keccak256.  Then it drives eleven
+two-phase circuits at k=8 on KZG / GWC / Keccak256.  Then it drives twelve
 main paths, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -26,8 +26,14 @@ just after:
   k=18 two-phase, KZG / SHPLONK / Keccak256, both through ProofConfig on
        the plonk_api path's params and tables  (A, B's add, C, D, the
        ordering pass)
+  k=18 plonk_api on a mesh of four shards of cuda:0 (dist/), on the
+       path's params: meshed keygen with the path's VK, the path's first
+       proof byte for byte, a steady prove, verify and a tampered proof
+       rejected  (A, B's add and doubling, C, D, the ordering pass)
   k=20 lookup_heavy, KZG / SHPLONK, on the unbaked table (kernel 8)
-  k=14 plonk_api, IPA / Vesta, opening MSMs on the segmented scan (kernel 9)
+  k=14 plonk_api, IPA / Vesta, opening MSMs on the segmented scan (kernel 9);
+       its ParamsIPA.new fills an empty params cache, and a second one
+       reads it back (both timed, the bytes equal)
   batch IPA k=14 on that path's keys: a BatchVerifier accepting three
        honest proofs and refusing them with one tampered  (A, the ordering
        pass, D)
@@ -65,7 +71,16 @@ scalar), with per-lane BN254 scalars including 0, 1 and p - 1, and at the
 Horner shapes of the k=20 unbaked MSM (BN254, 43 windows of 6 bits) and
 of the IPA opening's MSMs (Vesta, 33 windows of 8 bits and 65 of 4); each
 main path prints kernel B's launches split by caller.  At k=20 one MSM through the unbaked table must equal, as a group
-element, the same MSM through a baked table built for the check.  Kernels
+element, the same MSM through a baked table built for the check.  Beside
+the mesh path, the sharded primitives on four shards of cuda:0 are held
+against their one-device twins (the NTT at 2^20 BN254 and 2^16 Pasta,
+forward and inverse, the prefix product at 2^18, sharded_msm at 2^16
+Vesta, ShardedCachedMSM at 2^18 BN254) and timed beside them (copies on
+one card: nothing about NVLink); ProofConfig(k=8, mesh_devices=<visible
+cards>) must prove the unmeshed bytes and one card more must raise; and
+tests/_torch_multihost_child.py runs in two processes of two shards of
+cuda:0 over gloo, whose flat and hybrid 2^20 transforms must equal the
+one-process one.  Kernels
 10-15 are held against their plain versions at the bench's and the
 probes' shapes, and
 timed beside the PyTorch call that computes the same function where there
@@ -85,12 +100,16 @@ visible.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
 import random
+import shutil
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -102,6 +121,9 @@ K_IPA = 14
 K_IPA_CMP = 6
 N_STEADY_BIG = 2      # steady proves at K_LOOKUP, K_IPA and the K_MAIN
                       # shuffle and phase paths
+SHARDS = 4            # shards of the mesh paths, all on cuda:0
+K_MULTIHOST = 20      # the multi-process NTT, two processes x
+MULTIHOST_SHARDS = 2  # MULTIHOST_SHARDS shards of cuda:0 each
 # the paths proved through ProofConfig on the K_MAIN plonk_api path's
 # params: the reference's shuffle_api.rs circuit for an EVM verifier, and
 # the two-phase circuit
@@ -147,6 +169,10 @@ def main() -> int:
     t_start = time.time()
     walls: dict = {}
     dev = torch.device("cuda", 0)
+    # the run's own, empty IPA params cache, removed at exit
+    cache = tempfile.mkdtemp(prefix="halo2_smoke_cache_")
+    atexit.register(shutil.rmtree, cache, True)
+    os.environ["HALO2_TPU_CACHE"] = cache
     smi = card.name_and_power()
     clock_mhz = card.max_sm_clock_mhz()
     log(smi)
@@ -190,6 +216,15 @@ def main() -> int:
     for name in CONFIG_PATHS:
         with phase(f"KZG {name} k={K_MAIN}", walls):
             run_config_path(torch, path[0], counts, name)
+    with phase(f"dist primitives, {SHARDS} shards on cuda:0", walls):
+        check_dist_primitives(torch, dev)
+    with phase(f"KZG plonk_api k={K_MAIN} on a {SHARDS}-shard mesh", walls):
+        run_mesh_path(torch, dev, *path, kzg_proof, counts)
+    with phase("ProofConfig mesh_devices", walls):
+        check_config_mesh(torch, dev)
+    with phase(f"multihost: 2 processes x {MULTIHOST_SHARDS} shards on "
+               f"cuda:0, gloo", walls):
+        check_multihost(torch, dev)
     del path
     with phase(f"KZG lookup_heavy k={K_LOOKUP}", walls):
         path = run_lookup_heavy(torch, dev, counts)
@@ -199,7 +234,9 @@ def main() -> int:
         check_unbaked_vs_baked(torch, path[0])
     del path
     with phase(f"IPA plonk_api k={K_IPA}", walls):
-        (params, pk, circuit, inst), ipa_proof = run_ipa(torch, dev, counts)
+        (params, pk, circuit, inst), ipa_proof, t_cold = run_ipa(
+            torch, dev, counts)
+        check_ipa_cache(torch, params, t_cold)
     with phase(f"kernels D and 9 at the k={K_IPA} prove's calls", walls):
         check_ipa_main(torch, params, pk, circuit, inst, bound, results)
     with phase(f"batch IPA k={K_IPA}", walls):
@@ -895,7 +932,23 @@ def compare_kzg_cpu_gpu(torch, dev):
     log(f"[KZG k={K_CMP}] CPU-plain and GPU-kernel proof bytes are equal")
 
 
+@contextlib.contextmanager
+def own_params_cache():
+    """A new, empty IPA params cache inside the run's own for the block, so
+    that ParamsIPA.new makes its params there instead of reading a file
+    that an earlier phase or the other side of a comparison wrote."""
+    root = os.environ["HALO2_TPU_CACHE"]
+    os.environ["HALO2_TPU_CACHE"] = tempfile.mkdtemp(dir=root)
+    try:
+        yield
+    finally:
+        os.environ["HALO2_TPU_CACHE"] = root
+
+
 def compare_ipa_cpu_gpu(torch, dev):
+    """IPA params, keygen, prove and verify on the CPU's plain versions
+    and on the card's kernels, each side with params it made itself: the
+    proof bytes must be equal."""
     from halo2_tpu_torch.api import create_proof, keygen, verify
     from halo2_tpu_torch.commit import ParamsIPA
     from halo2_tpu_torch.compat import plonk_api
@@ -905,7 +958,8 @@ def compare_ipa_cpu_gpu(torch, dev):
     proofs = {}
     for where in ("cpu", dev):
         t0 = time.time()
-        params = ParamsIPA.new(VESTA, K_IPA_CMP, device=where)
+        with own_params_cache():
+            params = ParamsIPA.new(VESTA, K_IPA_CMP, device=where)
         pk = keygen(F, params, K_IPA_CMP, circuit)
         proof = create_proof(params, pk, [circuit], [inst], random.Random(1))
         if not verify(params, pk.vk, proof, [inst]):
@@ -1118,17 +1172,37 @@ def run_ipa(torch, dev, counts):
         pk = keygen(F, params, K_IPA, circuit)
         torch.cuda.synchronize()
         log(f"[{tag}] ParamsIPA.new {t_params:.2f} s (host hash-to-curve "
-            f"and point NTT), keygen {time.time() - t0:.2f} s")
+            f"and point NTT, an empty params cache), keygen "
+            f"{time.time() - t0:.2f} s")
         return params, pk, prove_verify(torch, tag, cfg, params, pk, circuit,
-                                        inst, N_STEADY_BIG)
+                                        inst, N_STEADY_BIG), t_params
 
     cfg = _config(dev, K_IPA, curve="vesta", scheme="ipa")
-    params, pk, proof = run_path(torch, tag, counts, (
+    params, pk, proof, t_params = run_path(torch, tag, counts, (
         "h2_field_binop", "h2_ec_add", "h2_ec_double", "h2_ntt_base",
         "h2_msm_order", "h2_stream_bucket", "h2_scan_level",
         "h2_ec_scalar_mul", "h2_ec_horner"), body)
     profile_prove(torch, tag, cfg, params, pk, circuit, inst)
-    return (params, pk, circuit, inst), proof
+    return (params, pk, circuit, inst), proof, t_params
+
+
+def check_ipa_cache(torch, params, t_cold: float):
+    """A warm ParamsIPA.new(VESTA, K_IPA): it reads the file the path's
+    cold one wrote into the run's empty params cache; both write its
+    bytes."""
+    from halo2_tpu_torch.commit import ParamsIPA
+    from halo2_tpu_torch.commit.ipa import params_cache_path
+    from halo2_tpu_torch.curves import VESTA
+    path = params_cache_path(VESTA, K_IPA)
+    warm, t_warm = timed(torch, lambda: ParamsIPA.new(VESTA, K_IPA,
+                                                      device=params.device))
+    with open(path, "rb") as f:
+        data = f.read()
+    if params.write() != data or warm.write() != data:
+        raise AssertionError("IPA params cache: cold, warm and file differ")
+    log(f"[IPA params cache] {len(data)} bytes; ParamsIPA.new({VESTA.name}, "
+        f"{K_IPA}) cold {t_cold:.2f} s, warm {t_warm:.2f} s; the cold "
+        f"params, the warm ones and the file have equal bytes")
 
 
 def run_config_path(torch, params, counts, name):
@@ -1162,6 +1236,201 @@ def run_config_path(torch, params, counts, name):
         "h2_field_binop", "h2_ec_add", "h2_ntt_base", "h2_msm_order",
         "h2_stream_bucket"), body)
     profile_prove(torch, tag, cfg, params, pk, circuit, [])
+
+
+# ----------------------------------------------------------------------
+# the multi-device layer (dist/) on one card
+# ----------------------------------------------------------------------
+
+def check_dist_primitives(torch, dev):
+    """ShardedNTT (forward, inverse), sharded_prefix_product, sharded_msm
+    and ShardedCachedMSM on Mesh([cuda:0] * SHARDS) against their
+    one-device twins on the same inputs (transforms and products word for
+    word, MSMs as group elements), each timed beside its twin."""
+    from halo2_tpu_torch.curves import BN254_G1, VESTA
+    from halo2_tpu_torch.dist import (Mesh, ShardedCachedMSM, ShardedNTT,
+                                      sharded_msm, sharded_prefix_product)
+    from halo2_tpu_torch.fields import BN254_FR, PASTA_FP
+    from halo2_tpu_torch.msm import StreamMSM
+    from halo2_tpu_torch.msm.bucket_scan import msm_variable
+    from halo2_tpu_torch.ntt import get_ntt
+    from halo2_tpu_torch.tools import card
+    mesh = Mesh([dev] * SHARDS)
+    log(f"[dist] {mesh}; the times below count copies on one card and say "
+        f"nothing about NVLink")
+
+    def compare(what, sharded, twin, same):
+        if not same(sharded(), twin()):
+            raise AssertionError(f"dist {what}: sharded and one-device "
+                                 f"results differ")
+        ms, twin_ms = card.cuda_ms(sharded), card.cuda_ms(twin)
+        log(f"[dist] {what}: equal; sharded {ms:.3f} ms, one device "
+            f"{twin_ms:.3f} ms ({ms / twin_ms:.2f}x)")
+
+    for F, log_n in ((BN254_FR, 20), (PASTA_FP, 16)):
+        a = random_elems(torch, F, 1 << log_n, 40 + log_n, dev)
+        dist, single = ShardedNTT(mesh, F, log_n), get_ntt(F, log_n, dev)
+        compare(f"NTT forward {F.name} 2^{log_n}", lambda: dist.forward(a),
+                lambda: single.forward(a), torch.equal)
+        compare(f"NTT inverse {F.name} 2^{log_n}", lambda: dist.inverse(a),
+                lambda: single.inverse(a), torch.equal)
+    F = BN254_FR
+    a = random_elems(torch, F, 1 << 18, 60, dev)
+    compare(f"prefix product {F.name} 2^18",
+            lambda: sharded_prefix_product(mesh, F, a),
+            lambda: F.prefix_product(a), torch.equal)
+    for G, log_n, what in ((VESTA, 16, "sharded_msm (kernel 9)"),
+                           (BN254_G1, 18, "ShardedCachedMSM (kernel D)")):
+        pts = G.generator_mul(random_elems(torch, G.Fr, 1 << log_n, 61, dev))
+        s = random_elems(torch, G.Fr, 1 << log_n, 62, dev)
+        if G is VESTA:
+            sharded = lambda: sharded_msm(mesh, G, s, pts)      # noqa: E731
+            twin = lambda: msm_variable(G, s, pts)              # noqa: E731
+        else:
+            cached, table = ShardedCachedMSM(mesh, G, pts), StreamMSM(G, pts)
+            sharded = lambda: cached(s)                         # noqa: E731
+            twin = lambda: table(s)                             # noqa: E731
+        compare(f"{what} {G.name} 2^{log_n}", sharded, twin,
+                lambda p, q: bool(G.eq(p, q)))
+
+
+def run_mesh_path(torch, dev, params, pk, circuit, inst, first_proof,
+                  counts):
+    """The k=18 plonk_api path on Mesh([cuda:0] * SHARDS), on its params:
+    meshed keygen (the VK must equal the path's), the first proof
+    (random.Random(1), the path's first proof byte for byte), one steady
+    prove with its step table, verify and a tampered proof rejected, then
+    one profiled prove.  The params' engine is restored after."""
+    from halo2_tpu_torch import api
+    from halo2_tpu_torch.commit import (ProverSHPLONK, SingleStrategyKZG,
+                                        VerifierSHPLONK)
+    from halo2_tpu_torch.dist import Mesh
+    from halo2_tpu_torch.engine import GpuMsmEngine, PlonkEngineConfig
+    tag = f"KZG plonk_api k={K_MAIN} on {SHARDS} shards"
+    mesh = Mesh([dev] * SHARDS)
+    engine = PlonkEngineConfig.set_msm(GpuMsmEngine(mesh=mesh), mesh=mesh)
+    F = pk.vk.F
+
+    def verify(mpk, proof):
+        return api.verify(params, mpk.vk, proof, [inst],
+                          multiopen_verifier_cls=VerifierSHPLONK,
+                          strategy_cls=SingleStrategyKZG)
+
+    def body():
+        mpk, t = timed(torch, lambda: api.keygen(F, params, K_MAIN, circuit,
+                                                 engine=engine))
+        if mpk.vk.pinned() != pk.vk.pinned():
+            raise AssertionError(f"{tag}: meshed VK differs from the path's")
+        log(f"[{tag}] keygen {t:.2f} s; VK equals the path's")
+        for seed, run in ((1, "first"), (2, "steady")):
+            timings = {}
+            proof, t = timed(torch, lambda: api.create_proof(
+                params, mpk, [circuit], [inst], random.Random(seed),
+                multiopen_prover_cls=ProverSHPLONK, engine=engine,
+                timings=timings))
+            steps = ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+            log(f"[{tag}] prove ({run}) {t:.3f} s; steps: {steps}")
+            if run == "first" and proof != first_proof:
+                raise AssertionError(f"{tag}: the first proof differs from "
+                                     f"the unmeshed path's")
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        if not verify(mpk, proof) or verify(mpk, bytes(bad)):
+            raise AssertionError(f"{tag}: verification failed")
+        log(f"[{tag}] the first proof equals the unmeshed path's byte for "
+            f"byte; verify True; tampered proof rejected")
+        return mpk
+
+    def prove(mpk, circuits, instances, rng, params):
+        return api.create_proof(params, mpk, circuits, instances, rng,
+                                multiopen_prover_cls=ProverSHPLONK,
+                                engine=engine)
+
+    saved = params.engine
+    try:
+        # the shards' tables are baked anew (doublings); no mixed add runs
+        # on the path's params (it runs in ParamsKZG.setup)
+        mpk = run_path(torch, tag, counts, (
+            "h2_field_binop", "h2_ec_add", "h2_ec_double", "h2_ntt_base",
+            "h2_msm_order", "h2_stream_bucket"), body)
+        profile_prove(torch, tag, types.SimpleNamespace(prove=prove), params,
+                      mpk, circuit, inst)
+    finally:
+        params.set_engine(saved)
+
+
+def check_config_mesh(torch, dev):
+    """ProofConfig(k=K_CMP, mesh_devices=<visible cards>) proves the bytes
+    of the unmeshed ProofConfig; one card more than is visible raises."""
+    from halo2_tpu_torch.commit import ParamsKZG
+    from halo2_tpu_torch.compat import plonk_api
+    cards = torch.cuda.device_count()
+    params = ParamsKZG.new(K_CMP, device=dev)
+    proofs = []
+    for cfg in (_config(dev, K_CMP), _config(dev, K_CMP, mesh_devices=cards)):
+        circuit, inst = plonk_api.plonk_api_instance(cfg.F)
+        pk = cfg.keygen(circuit, params=params)
+        proofs.append(cfg.prove(pk, [circuit], [inst], random.Random(1),
+                                params=params))
+        if not cfg.verify(pk.vk, proofs[-1], [inst], params=params):
+            raise AssertionError(f"ProofConfig mesh_devices={cfg.mesh_devices}"
+                                 f": verification failed")
+    if proofs[0] != proofs[1]:
+        raise AssertionError(f"ProofConfig mesh_devices={cards}: proof bytes "
+                             f"differ from the unmeshed ones")
+    try:
+        _config(dev, K_CMP, mesh_devices=cards + 1).engine()
+    except ValueError as e:
+        log(f"[ProofConfig] mesh_devices={cards + 1} raises: {e}")
+    else:
+        raise AssertionError(f"mesh_devices={cards + 1} did not raise")
+    log(f"[ProofConfig] k={K_CMP} mesh_devices={cards} proves the unmeshed "
+        f"bytes ({len(proofs[0])} bytes)")
+
+
+def check_multihost(torch, dev):
+    """tests/_torch_multihost_child.py in two processes of
+    MULTIHOST_SHARDS shards of cuda:0 each over gloo, on the flat and the
+    hybrid mesh: the 2^K_MULTIHOST BN254 ShardedNTT must equal the
+    one-process transform of the same coefficients word for word."""
+    import subprocess
+    import tempfile
+    from halo2_tpu_torch.fields import BN254_FR as F
+    from halo2_tpu_torch.ntt import get_ntt
+    child = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                         "_torch_multihost_child.py")
+    rng = random.Random(77)
+    a = F.encode_ints([rng.randrange(F.p) for _ in range(1 << K_MULTIHOST)],
+                      dev)
+    want = get_ntt(F, K_MULTIHOST, dev).forward(a).cpu()
+    log("[multihost] backend gloo: one card cannot hold two NCCL ranks, so "
+        "the chunks of CUDA slabs go through host memory")
+    with tempfile.TemporaryDirectory() as tmp:
+        for layout in ("flat", "hybrid"):
+            out = os.path.join(tmp, f"{layout}.pt")
+            init = "file://" + os.path.join(tmp, f"{layout}.rendezvous")
+            t0 = time.time()
+            procs = [subprocess.Popen(
+                [sys.executable, child, str(rank), "2", init,
+                 str(K_MULTIHOST), out, layout, str(dev),
+                 str(MULTIHOST_SHARDS), "gloo"],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                for rank in range(2)]
+            try:
+                errs = [p.communicate(timeout=300)[1] for p in procs]
+            finally:
+                for p in procs:
+                    p.kill()
+                    p.wait()
+            if any(p.returncode for p in procs):
+                raise AssertionError(f"multihost {layout}: " + " | ".join(
+                    e.decode()[-1500:] for e in errs))
+            if not torch.equal(torch.load(out), want):
+                raise AssertionError(f"multihost {layout}: the 2-process NTT "
+                                     f"differs from the one-process one")
+            log(f"[multihost] {layout}: 2 x {MULTIHOST_SHARDS} shards, "
+                f"2^{K_MULTIHOST} forward and inverse, equal to one process; "
+                f"{time.time() - t0:.2f} s with the processes' start-up")
 
 
 # ----------------------------------------------------------------------

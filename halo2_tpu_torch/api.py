@@ -11,7 +11,10 @@ KZG callers pass `multiopen_prover_cls=ProverSHPLONK` (or `ProverGWC`),
 and `multiopen_verifier_cls=VerifierSHPLONK` (or `VerifierGWC`),
 `strategy_cls=SingleStrategyKZG`; an EVM verifier's transcript is
 `Keccak256Write` / `Keccak256Read`.  `config.ProofConfig` picks all of
-these from names.
+these from names.  `keygen` and `create_proof` take an `engine`
+(`engine.PlonkEngine`); one with a mesh (dist/) shards their transforms,
+fixed-base MSMs and permutation products over the mesh's devices, with
+the proof bytes of one device.
 """
 
 from __future__ import annotations

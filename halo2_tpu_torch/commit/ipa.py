@@ -19,8 +19,10 @@ g-scalars meet the cached descriptor of g.
 
 from __future__ import annotations
 
+import os
 import random
 import struct
+import tempfile
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -40,6 +42,16 @@ from ..poly.poly import COEFF, LAGRANGE, unwrap
 from .base import Blind
 
 _ISO = {"pasta::Vesta": VESTA_ISO, "pasta::Pallas": PALLAS_ISO}
+
+
+def params_cache_path(curve: Curve, k: int) -> str:
+    """`<cache>/params/ipa-v2-<curve>-<k>.bin`, the reference's file name;
+    <cache> is $HALO2_TPU_CACHE, as in the reference, or else
+    ~/.cache/halo2_tpu_torch."""
+    cache = os.environ.get("HALO2_TPU_CACHE") or os.path.expanduser(
+        "~/.cache/halo2_tpu_torch")
+    return os.path.join(cache, "params", f"ipa-v2-"
+                        f"{curve.name.replace(':', '_')}-{k}.bin")
 
 
 class ParamsIPA:
@@ -76,10 +88,27 @@ class ParamsIPA:
     def new(curve: Curve, k: int, device="cuda") -> "ParamsIPA":
         """The reference's parameters (ipa/commitment.rs:156-214): g[i] =
         H([0, i as u32 le]), w = H([1]), u = H([2]) on the host, and
-        g_lagrange by the inverse point NTT on `device`."""
+        g_lagrange by the inverse point NTT on `device`.  Cached on disk
+        as the reference caches them: `params_cache_path(curve, k)` is
+        read when it exists and written when it does not."""
         device = resolve_device(device)
         if curve.name not in _ISO:
             raise ValueError(f"no hash-to-curve suite for {curve.name}")
+        path = params_cache_path(curve, k)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                return ParamsIPA.read(curve, f.read(), device)
+        params = ParamsIPA._generate(curve, k, device)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        # write then rename, so that a concurrent reader never sees part
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path))
+        with os.fdopen(fd, "wb") as f:
+            f.write(params.write())
+        os.replace(tmp, path)
+        return params
+
+    @staticmethod
+    def _generate(curve: Curve, k: int, device) -> "ParamsIPA":
         hasher = hash_to_curve(_ISO[curve.name], "Halo2-Parameters")
         g_aff = [hasher(b"\x00" + i.to_bytes(4, "little"))
                  for i in range(1 << k)]

@@ -10,13 +10,16 @@ and k, and resolves them to the port's classes, so that callers write
     ok = cfg.verify(pk.vk, proof, [instances], params=params)
 
 `device` (default "cuda") is where the params, and so every proof made
-with them, live; tests pass "cpu".  The port runs on one device:
-`mesh_devices` other than None raises.
+with them, live; tests pass "cpu".  With `mesh_devices=n`, keygen and
+prove run on a mesh of n devices of that kind (`dist.make_mesh`: cuda:0
+.. cuda:n-1, which raises when fewer cards are visible, or n CPU shards):
+the NTTs, the fixed-base MSMs and the permutation products are sharded,
+and the proof bytes are those of one device.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 from . import api
@@ -43,6 +46,8 @@ class ProofConfig:
     mesh_devices: Optional[int] = None
     compress_selectors: bool = True
     device: str = "cuda"
+    _engine: Optional[object] = field(default=None, init=False, repr=False,
+                                      compare=False)
 
     def __post_init__(self):
         if self.curve not in _CURVES:
@@ -56,10 +61,6 @@ class ProofConfig:
         if self.scheme == "ipa" and self.curve == "bn254":
             raise ValueError("IPA params require a hash-to-curve suite "
                              "(pallas/vesta)")
-        if self.mesh_devices is not None:
-            raise NotImplementedError(
-                "mesh_devices: the port proves on one GPU; multi-GPU "
-                "proving is ROADMAP.md Queue 1's multi-GPU item")
 
     # -- resolution ------------------------------------------------------
 
@@ -91,18 +92,32 @@ class ProofConfig:
         }[self.scheme]
         return writer, reader, prover, verifier, strategy
 
+    def engine(self):
+        """The meshed engine of `mesh_devices` devices, built at the first
+        call and kept (so are its sharded tables), or None."""
+        if self.mesh_devices is None:
+            return None
+        if self._engine is None:
+            from .dist import make_mesh
+            from .engine import GpuMsmEngine, PlonkEngineConfig
+            mesh = make_mesh(self.mesh_devices, self.device)
+            self._engine = PlonkEngineConfig.set_msm(GpuMsmEngine(mesh=mesh))
+        return self._engine
+
     # -- drivers ---------------------------------------------------------
 
     def keygen(self, circuit, params=None):
         return api.keygen(self.F, params or self.params(), self.k, circuit,
-                          compress_selectors=self.compress_selectors)
+                          compress_selectors=self.compress_selectors,
+                          engine=self.engine())
 
     def prove(self, pk, circuits, instances, rng=None, params=None,
               timings=None) -> bytes:
         writer, _r, prover, _v, _s = self._classes()
         return api.create_proof(params or self.params(), pk, circuits,
                                 instances, rng, transcript_cls=writer,
-                                multiopen_prover_cls=prover, timings=timings)
+                                multiopen_prover_cls=prover,
+                                engine=self.engine(), timings=timings)
 
     def verify(self, vk, proof: bytes, instances, params=None) -> bool:
         _w, reader, _p, verifier, strategy = self._classes()

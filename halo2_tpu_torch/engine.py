@@ -5,15 +5,18 @@ ZAL layer, halo2_middleware/src/zal.rs:57-243).
 engine: fixed bases (the SRS and its Lagrange form) become device-resident
 `StreamMSM` descriptors, built once and reused by every commitment: a baked
 table (kernel D) up to k = 18, the unbaked n-row table (kernel 8) from
-k = 19.  It is the engine `ParamsKZG` and `ParamsIPA` start with.  Two deliberate differences from the
-reference engine: there is no window-width option (the stream width is
-`STREAM_C`), and the descriptor cache is bounded.
+k = 19.  It is the engine `ParamsKZG` and `ParamsIPA` start with.  With a
+mesh (dist/mesh.py) its descriptors are `ShardedCachedMSM`s: the bases
+split over the mesh's devices, one `StreamMSM` a shard.  Two deliberate
+differences from the reference engine: there is no window-width option
+(the stream width is `STREAM_C`), and the descriptor cache is bounded.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass, field
+from typing import Any, Optional
 
 from .curves.curve import Curve
 from .msm.msm import msm
@@ -34,15 +37,17 @@ class H2cEngine:
 
 
 class GpuMsmEngine(H2cEngine):
-    """Engine with device-resident fixed-base descriptors (kernels D, 8).
+    """Engine with device-resident fixed-base descriptors (kernels D, 8),
+    sharded over `mesh` when one is given.
 
     The cache maps id(bases) to (bases, descriptor) and keeps the bases
     alive, so a recycled id can never serve a stale table; at most
     `max_descriptors` tables are held (least recently used first out).  A
     prover needs two: g (or [s^i]G) and its Lagrange form."""
 
-    def __init__(self, max_descriptors: int = 2):
+    def __init__(self, max_descriptors: int = 2, mesh=None):
         self.max_descriptors = max_descriptors
+        self.mesh = mesh
         self._cache: OrderedDict = OrderedDict()
 
     def get_base_descriptor(self, curve: Curve, bases):
@@ -51,7 +56,11 @@ class GpuMsmEngine(H2cEngine):
         if hit is not None and hit[0] is bases:
             self._cache.move_to_end(key)
             return hit[1]
-        desc = StreamMSM(curve, bases)
+        if self.mesh is not None:
+            from .dist.msm import ShardedCachedMSM
+            desc = ShardedCachedMSM(self.mesh, curve, bases)
+        else:
+            desc = StreamMSM(curve, bases)
         self._cache[key] = (bases, desc)
         while len(self._cache) > self.max_descriptors:
             self._cache.popitem(last=False)
@@ -63,8 +72,11 @@ class GpuMsmEngine(H2cEngine):
 
 @dataclass
 class PlonkEngine:
-    """The engine bundle threaded through keygen and the prover."""
+    """The engine bundle threaded through keygen and the prover: the MSM
+    backend, and the device mesh (dist/mesh.py) whose NTTs and permutation
+    products are sharded, or None for one device."""
     msm_backend: H2cEngine = field(default_factory=GpuMsmEngine)
+    mesh: Optional[Any] = None
 
 
 class PlonkEngineConfig:
@@ -76,5 +88,14 @@ class PlonkEngineConfig:
         return PlonkEngine()
 
     @staticmethod
-    def set_msm(engine: H2cEngine) -> PlonkEngine:
-        return PlonkEngine(msm_backend=engine)
+    def set_msm(engine: H2cEngine, mesh=None) -> PlonkEngine:
+        """The bundle of `engine` and its mesh.  `mesh` defaults to the
+        engine's own; one that differs from it raises, so that the MSMs
+        and the transforms are sharded alike or not at all."""
+        own = getattr(engine, "mesh", None)
+        if mesh is None:
+            mesh = own
+        elif mesh is not own:
+            raise ValueError("set_msm: the mesh differs from the MSM "
+                             "engine's; build the engine with mesh=")
+        return PlonkEngine(msm_backend=engine, mesh=mesh)

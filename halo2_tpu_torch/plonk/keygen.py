@@ -187,7 +187,8 @@ class ProvingKey:
 
 def keygen(F: Field, params, compiled: CompiledCircuit, k: int,
            engine=None) -> ProvingKey:
-    """keygen_vk + keygen_pk fused, on the params' device."""
+    """keygen_vk + keygen_pk fused, on the params' device; an engine with
+    a mesh shards the domain's transforms and the commitments over it."""
     from .prover import Evaluator
 
     curve = params.curve
@@ -198,6 +199,8 @@ def keygen(F: Field, params, compiled: CompiledCircuit, k: int,
     domain = EvaluationDomain(F, max(cs_back.degree(), 2), k, dev)
     if engine is not None:
         params.set_engine(engine)
+        if engine.mesh is not None:
+            domain.set_mesh(engine.mesh)
 
     nf = cs.num_fixed_columns
     if nf:

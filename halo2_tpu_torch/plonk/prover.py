@@ -213,8 +213,11 @@ class Prover:
         self.rng = rng
         self.transcript = transcript
         self.timings: Dict[str, float] = {}
+        self.mesh = engine.mesh if engine is not None else None
         if engine is not None:
             params.set_engine(engine)
+            if engine.mesh is not None and pk.vk.domain._mesh is None:
+                pk.vk.domain.set_mesh(engine.mesh)
         self.challenges: Dict[int, int] = {}
         cs = pk.vk.cs.cs
         for inst in instances:
@@ -637,7 +640,11 @@ class Prover:
                 modified = F.mul(modified, F.add(F.add(
                     F.mul(deltaomega, b_enc), g_enc), vals))
                 delta_power += 1
-            cum = prefix_product(F, modified)
+            if self.mesh is not None:
+                from ..dist.scan import sharded_prefix_product
+                cum = sharded_prefix_product(self.mesh, F, modified)
+            else:
+                cum = prefix_product(F, modified)
             z = torch.cat([F.encode_ints([last_z], dev),
                            F.mul(cum[:-1], F.encode_int(last_z, dev))])
             z = torch.cat([z[: n - bf], F.encode_ints(

@@ -2,7 +2,9 @@
 
 Every transform takes (..., n, 8) tensors and moves a whole column set in
 one batched NTT; the constants (t-evaluation inverses, zeta patterns) live
-on the domain's device.
+on the domain's device.  After `set_mesh`, the transforms run through the
+sharded NTT (dist/ntt.py), and the coset patterns, zero padding and
+truncation that kernel C folds in on one device run as passes of their own.
 """
 
 from __future__ import annotations
@@ -69,6 +71,21 @@ class EvaluationDomain:
         ext_n_inv = pow(self.extended_n, p - 2, p)
         self._zeta_inv = tuple(ext_n_inv * z % p
                                for z in (1, self.g_coset_inv, self.g_coset))
+        self._mesh = None
+        self._sharded: dict = {}    # log_n -> ShardedNTT
+
+    def set_mesh(self, mesh):
+        """Route every transform through the sharded NTT over `mesh` (the
+        mesh size must divide the four-step splits of k and extended_k),
+        or back to the one-device NTT with None."""
+        from ..dist.ntt import ShardedNTT
+        self._mesh = mesh
+        self._sharded = {}
+        if mesh is not None:
+            self._sharded[self.k] = ShardedNTT(mesh, self.F, self.k,
+                                               self.omega)
+            self._sharded[self.extended_k] = ShardedNTT(
+                mesh, self.F, self.extended_k, self.extended_omega)
 
     # ------------------------------------------------------------------
     # constructors (raw (..., n, 8) tensors, as the reference returns)
@@ -110,18 +127,38 @@ class EvaluationDomain:
             fn(flat[i:i + chunk], flat_out[i:i + chunk])
         return out
 
+    def _apply_sharded(self, log_n: int, inverse: bool, pre=None,
+                       post=None):
+        """fn(chunk, out_chunk) of the sharded transform of 2^log_n, with
+        pre / post(c) applied to the chunk before / after it."""
+        sn = self._sharded[log_n]
+
+        def fn(c, o):
+            c = pre(c) if pre is not None else c
+            c = sn.inverse(c) if inverse else sn.forward(c)
+            o.copy_(post(c) if post is not None else c)
+        return fn
+
+    def _distribute_zeta(self, a, pattern):
+        """a times pattern[i % 3] along its rows (three python ints)."""
+        n = a.shape[-2]
+        scal = self.F.encode_ints(list(pattern), a.device)
+        return self.F.mul(a, scal.repeat((n + 2) // 3, 1)[:n])
+
     def lagrange_to_coeff(self, a):
         a, typed = take(a, LAGRANGE, "lagrange_to_coeff")
         assert a.shape[-2] == self.n
-        out = self._chunk_batched(
-            lambda c, o: self._ntt._transform(c, True, out=o), a, self.n)
+        fn = (self._apply_sharded(self.k, True) if self._mesh is not None
+              else lambda c, o: self._ntt._transform(c, True, out=o))
+        out = self._chunk_batched(fn, a, self.n)
         return Poly.coeff(out) if typed else out
 
     def coeff_to_lagrange(self, a):
         a, typed = take(a, COEFF, "coeff_to_lagrange")
         assert a.shape[-2] == self.n
-        out = self._chunk_batched(
-            lambda c, o: self._ntt._transform(c, False, out=o), a, self.n)
+        fn = (self._apply_sharded(self.k, False) if self._mesh is not None
+              else lambda c, o: self._ntt._transform(c, False, out=o))
+        out = self._chunk_batched(fn, a, self.n)
         return Poly.lagrange(out) if typed else out
 
     def coeff_to_extended(self, a):
@@ -130,10 +167,17 @@ class EvaluationDomain:
         the coset pattern and reads the rows from n on as zero."""
         a, typed = take(a, COEFF, "coeff_to_extended")
         assert a.shape[-2] == self.n
-        out = self._chunk_batched(
-            lambda c, o: self._ntt_ext._transform(c, False,
-                                                  load=self._zeta_fwd, out=o),
-            a, self.extended_n)
+        if self._mesh is not None:
+            def pad(c):
+                c = self._distribute_zeta(c, self._zeta_fwd)
+                zeros = c.new_zeros(c.shape[:-2] + (
+                    self.extended_n - self.n, NWORDS))
+                return torch.cat([c, zeros], dim=-2)
+            fn = self._apply_sharded(self.extended_k, False, pre=pad)
+        else:
+            fn = lambda c, o: self._ntt_ext._transform(  # noqa: E731
+                c, False, load=self._zeta_fwd, out=o)
+        out = self._chunk_batched(fn, a, self.extended_n)
         return Poly.extended(out) if typed else out
 
     def extended_to_coeff(self, a):
@@ -144,9 +188,15 @@ class EvaluationDomain:
         a, typed = take(a, EXTENDED, "extended_to_coeff")
         assert a.shape[-2] == self.extended_n
         rows = self.n * self.quotient_poly_degree
-        out = self._chunk_batched(
-            lambda c, o: self._ntt_ext._transform(
-                c, True, store=self._zeta_inv, rows=rows, out=o), a, rows)
+        if self._mesh is not None:
+            zeta_inv = (1, self.g_coset_inv, self.g_coset)
+            fn = self._apply_sharded(
+                self.extended_k, True, post=lambda c: self._distribute_zeta(
+                    c[..., :rows, :], zeta_inv))
+        else:
+            fn = lambda c, o: self._ntt_ext._transform(  # noqa: E731
+                c, True, store=self._zeta_inv, rows=rows, out=o)
+        out = self._chunk_batched(fn, a, rows)
         return Poly.coeff(out) if typed else out
 
     def divide_by_vanishing_poly(self, a):

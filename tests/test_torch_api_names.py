@@ -41,6 +41,7 @@ from halo2_tpu_torch.poly import EvaluationDomain, compute_inner_product
 from halo2_tpu_torch.poly import Rotation
 from halo2_tpu_torch.poly.poly import Poly
 from halo2_tpu_torch.transcript import Blake2bRead, Blake2bWrite
+from tests._torch_params_cache import own_params_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -15,6 +15,7 @@ from halo2_tpu.fields import PASTA_FP as REF_F
 from halo2_tpu_torch import dev, frontend
 from halo2_tpu_torch.examples import simple_example
 from halo2_tpu_torch.fields import PASTA_FP as F
+from tests._torch_params_cache import own_params_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -14,6 +14,7 @@ import torch
 
 from halo2_tpu_torch.examples import (circuit_layout, proof_size,
                                       simple_example, two_chip, vector_mul)
+from tests._torch_params_cache import own_params_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

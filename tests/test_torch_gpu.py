@@ -329,11 +329,13 @@ def test_gpu_proof_equals_cpu_proof(cuda):
     assert proofs[0] == proofs[1]
 
 
-def test_gpu_ipa_proof_equals_cpu_proof(cuda):
+def test_gpu_ipa_proof_equals_cpu_proof(cuda, tmp_path, monkeypatch):
     F = PASTA_FP
     circuit, inst = plonk_api.plonk_api_instance(F)
     proofs = []
     for dev in ("cpu", cuda):
+        # an empty params cache for each side, so that each makes its own
+        monkeypatch.setenv("HALO2_TPU_CACHE", str(tmp_path / str(dev)))
         params = ParamsIPA.new(VESTA, 6, device=dev)
         pk = api.keygen(F, params, 6, circuit)
         proofs.append(api.create_proof(params, pk, [circuit], [inst],
@@ -436,3 +438,43 @@ def test_gpu_mock_prover_equals_cpu(cuda):
         kinds.append(sorted({f[0] for f in runs[1]}))
     # plonk_api's instance enters through its 'Public input' gate
     assert kinds == [[], ["gate"], [], ["shuffle"], [], ["gate"]]
+
+
+def test_dist_on_a_virtual_mesh_matches_one_device(cuda):
+    """The sharded NTT (batched columns, forward and inverse), prefix
+    product and MSMs on Mesh([cuda:0] * 4) against the unsharded port
+    functions on the card (MSMs as group elements), and a meshed k=5 KZG
+    proof against the unmeshed one."""
+    from halo2_tpu_torch.dist import (Mesh, ShardedCachedMSM, ShardedNTT,
+                                      sharded_msm, sharded_prefix_product)
+    from halo2_tpu_torch.engine import GpuMsmEngine, PlonkEngineConfig
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = Mesh([dev] * 4)
+    for F, log_n in ((BN254_FR, 14), (PASTA_FP, 11)):
+        a = torch.stack([F.encode_ints(_ints(F.p, (1 << log_n) - 3, s), dev)
+                         for s in (1, 2)])
+        dist = ShardedNTT(mesh, F, log_n)
+        single = get_ntt(F, log_n, dev)
+        assert torch.equal(dist.forward(a), single.forward(a))
+        assert torch.equal(dist.inverse(a), single.inverse(a))
+        assert torch.equal(sharded_prefix_product(mesh, F, a[0]),
+                           F.prefix_product(a[0]))
+    n = 1 << 12
+    for G in (C, VESTA):
+        pts = G.generator_mul(G.Fr.encode_ints(_ints(G.Fr.p, n - 3, 3), dev))
+        s = G.Fr.encode_ints(_ints(G.Fr.p, n - 3, 4), dev)
+        want = G.to_affine_ints(msm(G, s, pts)[None])
+        assert G.to_affine_ints(sharded_msm(mesh, G, s, pts)[None]) == want
+        assert G.to_affine_ints(
+            ShardedCachedMSM(mesh, G, pts)(s)[None]) == want
+    F = BN254_FR
+    circuit, inst = plonk_api.plonk_api_instance(F)
+    params = ParamsKZG.new(5, device=dev)
+    proofs = []
+    for engine in (None, PlonkEngineConfig.set_msm(GpuMsmEngine(mesh=mesh),
+                                                   mesh=mesh)):
+        pk = api.keygen(F, params, 5, circuit, engine=engine)
+        proofs.append(api.create_proof(params, pk, [circuit], [inst],
+                                       random.Random(1), engine=engine,
+                                       multiopen_prover_cls=ProverSHPLONK))
+    assert proofs[0] == proofs[1]

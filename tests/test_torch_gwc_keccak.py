@@ -31,6 +31,7 @@ from halo2_tpu_torch.config import ProofConfig
 from halo2_tpu_torch.curves import BN254_G1, VESTA
 from halo2_tpu_torch.fields import BN254_FR as F
 from halo2_tpu_torch.poly import eval_polynomial_int
+from tests._torch_params_cache import own_params_cache  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -191,8 +192,16 @@ def test_proof_config_rejects_what_the_reference_rejects(kw):
 
 
 def test_proof_config_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ProofConfig(k=5, mesh_devices=4, device="cpu")
+    """A mesh of more devices than are visible raises, in the port as in
+    the reference, and never shrinks (the meshed proves themselves are in
+    test_torch_dist_prove.py)."""
+    import jax
+    with pytest.raises(ValueError):
+        RefProofConfig(k=5, mesh_devices=len(jax.devices()) + 1).engine()
+    with pytest.raises(ValueError, match="CUDA devices"):
+        ProofConfig(k=5, mesh_devices=torch.cuda.device_count() + 1).engine()
+    assert ProofConfig(k=5, mesh_devices=4,
+                       device="cpu").engine().mesh.size == 4
 
 
 @pytest.mark.parametrize("scheme,curve", [

@@ -26,6 +26,7 @@ from halo2_tpu_torch.curves import VESTA
 from halo2_tpu_torch.fields import PASTA_FP as F
 from halo2_tpu_torch.plonk import BatchVerifier
 from halo2_tpu_torch.plonk import batch as batch_mod
+from tests._torch_params_cache import own_params_cache  # noqa: F401
 
 # The plain versions run many small tensor ops: one thread per worker
 # is as fast and leaves the other cores to the other test workers.

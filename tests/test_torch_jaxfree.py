@@ -3,13 +3,16 @@ package `halo2_tpu` both blocked imports the port (its dev tools,
 middleware, serde, batch verifier and examples too), proves plonk_api with
 KZG / SHPLONK and with IPA over Vesta at k=5 (the smallest k plonk_api
 fits) on the CPU, verifies both proofs and rejects tampered ones, runs the
-MockProver and a vk_write / vk_read round trip; and no file of the port or
-of chip_smoke.py names the JAX package."""
+MockProver and a vk_write / vk_read round trip (and imports the
+multi-device layer, dist/); and no file of the port or of chip_smoke.py
+names the JAX package."""
 
 import os
 import re
 import subprocess
 import sys
+
+from tests._torch_params_cache import own_params_cache  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,6 +36,12 @@ import halo2_tpu_torch.examples.circuit_layout
 import halo2_tpu_torch.examples.proof_size
 import halo2_tpu_torch.examples.two_chip
 import halo2_tpu_torch.examples.vector_mul
+import halo2_tpu_torch.dist
+import halo2_tpu_torch.dist.mesh
+import halo2_tpu_torch.dist.msm
+import halo2_tpu_torch.dist.multihost
+import halo2_tpu_torch.dist.ntt
+import halo2_tpu_torch.dist.scan
 import halo2_tpu_torch.middleware
 import halo2_tpu_torch.plonk.batch
 

@@ -22,6 +22,7 @@ from halo2_tpu_torch.frontend.expression import Expression, Selector
 from halo2_tpu_torch.middleware import (CompiledCircuitMid, compiled_to_mid,
                                         expr_from_obj, expr_to_obj)
 from halo2_tpu_torch.plonk.keygen import keygen
+from tests._torch_params_cache import own_params_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -46,6 +46,7 @@ from halo2_tpu_torch.compat.plonk_api import plonk_api_instance
 from halo2_tpu_torch.curves import VESTA
 from halo2_tpu_torch.examples.simple_example import SimpleCircuit
 from halo2_tpu_torch.fields import BN254_FR, PASTA_FP
+from tests._torch_params_cache import own_params_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

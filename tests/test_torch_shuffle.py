@@ -30,6 +30,7 @@ from halo2_tpu_torch.compat.shuffle_api import PhaseCircuit, ShuffleCircuit
 from halo2_tpu_torch.config import ProofConfig
 from halo2_tpu_torch.curves import VESTA
 from halo2_tpu_torch.plonk import verify_proof_single
+from tests._torch_params_cache import own_params_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -7,11 +7,17 @@ them, and each of their BN254 and Pasta instances, against its plain
 PyTorch version on the card word for word.  Proves on the CPU (plain
 versions) and on the GPU (kernels) and requires equal proof bytes: KZG
 plonk_api at k=8, IPA/Vesta plonk_api at k=6, and the shuffle and
-two-phase circuits at k=8 on KZG / GWC / Keccak256.  Then it drives twelve
-main paths, each with the launch counts set to 0 just before it and read
-just after:
+two-phase circuits at k=8 on KZG / GWC / Keccak256.  Then it drives
+fourteen main paths, each with the launch counts set to 0 just before it
+and read just after:
 
   k=18 plonk_api, KZG / SHPLONK  (kernels A, B, C, D, the ordering pass)
+  k=18 plonk_api under the sorted fixed-base MSM (GpuMsmEngine(style=
+       "sorted"): CachedMSM's window tables, the sort and kernel 9), on the
+       path's params: keygen with the path's VK, the path's first proof
+       byte for byte, a steady prove, verify, a tampered proof rejected
+       and a profiled prove  (A, B's add and doubling, C, 9; no D and no
+       ordering pass)
   serde k=18 on that path's keys: the VK in every SerdeFormat, the PK in
        RAW_BYTES and PROCESSED and the params written and read back onto
        the card, equal; a PK element >= p refused; a prove with the read
@@ -37,6 +43,8 @@ just after:
   batch IPA k=14 on that path's keys: a BatchVerifier accepting three
        honest proofs and refusing them with one tampered  (A, the ordering
        pass, D)
+  k=14 plonk_api, IPA, under the sorted MSM (c = 11): keygen with the
+       path's VK and its first proof byte for byte  (A, B, C, 9)
   bench micro k=18: the port bench's micro stage (MSM, NTT, kernel 10)
   probes: the ALU, gather and transpose probes (kernels 10-15)
 
@@ -50,7 +58,12 @@ share; not on lookup_heavy).  The cost model's proof sizes are printed
 beside the real proofs' of the k=18 KZG and k=14 IPA paths.  The ordering pass and
 kernel D are held against their plain versions at the k=18 table, the
 ordering pass and kernel 8 at the k=20 one, for random, 16-bit, zero,
-equal and one-bucket scalars; both are timed on random scalars and on the
+equal and one-bucket scalars, and the sorted MSM (CachedMSM, c = 13: baked
+at k=18, unbaked in five chunks of four windows at k=20) against the same
+StreamMSM for the same scalars, timed by steps (digits, sort, gather, scan
+levels, folds, chunk combine) beside it, with its table's build time and
+bytes, and kernel 9's first call of each shape of one sorted MSM held
+against its plain version; both are timed on random scalars and on the
 scalars of a real commitment of one more prove, whose nonzero shares are
 printed with each path's counts of elements streamed and added; the
 build's registers, spills, occupancy and SASS multiplies by kind are
@@ -139,6 +152,10 @@ SASS_TAG = {"bn254::G1": "Bn254G1", "pasta::Pallas": "Pallas",
 SCAN_SASS = {0: "Lb0ELb0E", 1: "Lb1ELb0E", 2: "Lb1ELb1E"}
 # kernel B's per-op SASS multiplier counts before the chain product (PR 4)
 B_CIOS = {"add": 2817, "madd": 2579, "double": 1787}
+# the kernels of a path under GpuMsmEngine(style="sorted"): A, B's add and
+# doubling (folds, window tables), C, and kernel 9 for every commitment
+SORTED_NEED = ("h2_field_binop", "h2_ec_add", "h2_ec_double", "h2_ntt_base",
+               "h2_scan_level")
 
 
 def log(msg: str):
@@ -207,6 +224,12 @@ def main() -> int:
         path, kzg_proof = run_kzg_plonk_api(torch, dev, counts)
     with phase(f"ordering pass and kernel D at k={K_MAIN}", walls):
         check_stream_main(torch, *path, bound, results)
+    with phase(f"sorted MSM at k={K_MAIN}, baked == StreamMSM", walls):
+        check_sorted_msm(torch, path[0], results)
+    with phase(f"KZG plonk_api k={K_MAIN} under the sorted MSM", walls):
+        run_sorted_path(torch, f"KZG plonk_api k={K_MAIN}, sorted MSM",
+                        _config(dev, K_MAIN), *path, kzg_proof, counts,
+                        SORTED_NEED, 1, True)
     with phase(f"serde k={K_MAIN}", walls):
         check_serde(torch, *path, kzg_proof, counts)
     with phase(f"middleware k={K_MAIN}", walls):
@@ -232,6 +255,8 @@ def main() -> int:
                f"baked", walls):
         check_stream_main(torch, *path, bound, results)
         check_unbaked_vs_baked(torch, path[0])
+    with phase(f"sorted MSM at k={K_LOOKUP}, unbaked == StreamMSM", walls):
+        check_sorted_msm(torch, path[0], results)
     del path
     with phase(f"IPA plonk_api k={K_IPA}", walls):
         (params, pk, circuit, inst), ipa_proof, t_cold = run_ipa(
@@ -241,6 +266,12 @@ def main() -> int:
         check_ipa_main(torch, params, pk, circuit, inst, bound, results)
     with phase(f"batch IPA k={K_IPA}", walls):
         check_batch(torch, params, pk, circuit, inst, counts)
+    with phase(f"IPA plonk_api k={K_IPA} under the sorted MSM", walls):
+        run_sorted_path(torch, f"IPA plonk_api k={K_IPA}, sorted MSM",
+                        _config(dev, K_IPA, curve="vesta", scheme="ipa"),
+                        params, pk, circuit, inst, ipa_proof, counts,
+                        SORTED_NEED + ("h2_ec_scalar_mul", "h2_ec_horner"),
+                        0, False)
     del params, pk
     log_cost_model(len(kzg_proof), len(ipa_proof))
     with phase(f"bench micro k={K_MAIN}", walls):
@@ -1882,6 +1913,176 @@ def check_unbaked_vs_baked(torch, params):
         f"{got == want}")
     if got != want:
         raise AssertionError("unbaked and baked k=20 MSMs differ")
+
+
+# ----------------------------------------------------------------------
+# the sorted fixed-base MSM (CachedMSM: the sort, kernel 9, kernel B)
+# ----------------------------------------------------------------------
+
+def sorted_msm_steps(torch, desc, s) -> dict:
+    """One CachedMSM call split into its steps, each timed by CUDA events
+    (the mean of 3 after a warm-up) on the inputs the call gives it and
+    summed over its window chunks: the signed digits, the stable sort, the
+    row gather, the bucket sums (kernel 9's scan levels with their tails),
+    the weighted folds (unbaked: with the Horner chain) and, unbaked, the
+    chunks' shift_add; beside the whole call."""
+    from halo2_tpu_torch.msm import bucket_scan as bs
+    from halo2_tpu_torch.tools import card
+    G, c, block = desc.curve, desc.c, desc.block
+    nb = (1 << (c - 1)) + 1
+    packed = bs.packed_digits(G, s, c)
+    t = dict(digits_ms=card.cuda_ms(lambda: bs.packed_digits(G, s, c)),
+             sort_ms=0.0, gather_ms=0.0, scan_ms=0.0, fold_ms=0.0,
+             combine_ms=0.0)
+    part = None
+    for i, (w0, w1) in enumerate(desc.bounds):
+        wc = w1 - w0
+        if desc.baked:
+            rows, keys, n_keys = desc.wchunks[i], packed[w0:w1].reshape(
+                -1), nb
+        else:
+            window = torch.arange(wc, dtype=torch.int32,
+                                  device=s.device)[:, None]
+            rows, n_keys = desc.rows, wc * nb
+            keys = (((packed[w0:w1] >> 1) + window * nb) * 2 +
+                    (packed[w0:w1] & 1)).reshape(-1)
+        keys_s, perm = bs.sort_perm(keys)
+        idx = perm if desc.baked else perm % desc.n
+        g = rows[idx]
+        buckets = bs.bucket_sums(G, keys_s, g, n_keys, block, packed=True)
+        if desc.baked:
+            def fold():
+                return bs.weighted_bucket_fold(G, buckets)
+        else:
+            def fold():
+                return bs.horner_windows(G, bs.weighted_bucket_fold(
+                    G, buckets.reshape(wc, nb, 3, 8).transpose(0, 1)), c)
+        t["sort_ms"] += card.cuda_ms(lambda: bs.sort_perm(keys))
+        t["gather_ms"] += card.cuda_ms(lambda: rows[idx])
+        t["scan_ms"] += card.cuda_ms(lambda: bs.bucket_sums(
+            G, keys_s, g, n_keys, block, packed=True))
+        t["fold_ms"] += card.cuda_ms(fold)
+        part = fold()
+        if i and not desc.baked:
+            t["combine_ms"] += card.cuda_ms(
+                lambda: bs.shift_add(G, part, c * wc, part))
+    t["msm_ms"] = card.cuda_ms(lambda: desc(s))
+    t["steps_ms"] = sum(v for k, v in t.items() if k != "msm_ms")
+    return t
+
+
+def check_sorted_msm(torch, params, results):
+    """CachedMSM (the sorted fixed-base MSM of GpuMsmEngine(style=
+    "sorted")) on the path's g_lagrange: built (time, table bytes), held
+    against the path's StreamMSM as group elements for the five scalar
+    kinds of kernel D's checks, kernel 9's calls of one MSM on random
+    scalars, the first of each shape, held against its plain version word
+    for word, and the MSM timed by steps beside StreamMSM's whole MSM."""
+    from halo2_tpu_torch.msm import CachedMSM
+    from halo2_tpu_torch.msm import bucket_scan as bs
+    from halo2_tpu_torch.tools import card
+    G = params.curve
+    tag = f"k={params.k}"
+    stream = params.engine.msm_backend.get_base_descriptor(
+        G, params.g_lagrange)
+    desc, t_build = timed(torch, lambda: CachedMSM(G, params.g_lagrange))
+    tables = desc.wchunks if desc.baked else [desc.rows]
+    nbytes = sum(t.numel() * 4 for t in tables)
+    log(f"[sorted MSM] {tag}: CachedMSM c={desc.c}, {desc.n_windows} "
+        f"windows, {'baked' if desc.baked else 'unbaked'}, "
+        f"{len(desc.bounds)} chunk(s) of <= {desc.window_chunk} windows; "
+        f"table {nbytes / 2**20:.1f} MiB built in {t_build:.3f} s")
+    for kind in STREAM_CASES:
+        s = stream_scalars(torch, G.Fr, params.n, 21, params.device, kind)
+        if G.to_affine_ints(desc(s)[None]) != \
+                G.to_affine_ints(stream(s)[None]):
+            raise AssertionError(f"sorted MSM {tag} {kind}: differs from "
+                                 f"StreamMSM")
+    log(f"[sorted MSM] {tag}: equal to StreamMSM ("
+        f"{'kernel D' if stream.baked else 'kernel 8'}) for "
+        f"{', '.join(STREAM_CASES)} scalars")
+    s = stream_scalars(torch, G.Fr, params.n, 21, params.device, "random")
+    with recording(bs, "scan_level") as scans:
+        desc(s)
+    torch.cuda.synchronize()
+    first = {}
+    for call in scans:
+        a = call[0]
+        first.setdefault((a[1].shape[0], a[3], a[4]), call)
+    err = 0
+    for args, _, _ in first.values():
+        err = max(err, check_scan_call(
+            torch, args, bs.scan_level_plain(*args),
+            f"sorted MSM {tag} scan mode {args[4]} M={args[1].shape[0]} "
+            f"block {args[3]}"))
+    big = max(first.values(), key=lambda call: call[0][1].shape[0])[0]
+    big_ms = card.cuda_ms(lambda: bs.scan_level(*big))
+    n_calls, n_shapes = len(scans), len(first)
+    del scans, first
+    log(f"[kernel 9] sorted MSM {tag}: the first of its {n_calls} calls of "
+        f"each of {n_shapes} shapes equal to plain; the largest "
+        f"({big[1].shape[0]} elements, block {big[3]}) {big_ms:.4f} ms")
+    steps = sorted_msm_steps(torch, desc, s)
+    stream_ms = card.cuda_ms(lambda: stream(s))
+    log(f"[sorted MSM] {tag} random scalars: whole MSM "
+        f"{steps['msm_ms']:.3f} ms (steps: "
+        + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in steps.items()
+                    if k != "msm_ms") + f" ms) against StreamMSM "
+        f"{stream_ms:.3f} ms")
+    r = results["h2_scan_level"]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r.setdefault("sorted_msm", {})[tag] = dict(
+        c=desc.c, baked=desc.baked, chunks=len(desc.bounds),
+        table_bytes=nbytes, build_s=t_build, scan_calls=n_calls,
+        scan_shapes_checked=n_shapes, max_abs_err=err,
+        largest_scan_ms=big_ms, stream_msm_ms=stream_ms, **steps)
+
+
+def run_sorted_path(torch, tag, cfg, params, pk, circuit, inst, first_proof,
+                    counts, need, n_steady: int, profile: bool):
+    """A path's circuit on its params under GpuMsmEngine(style="sorted"):
+    keygen (the VK must equal the path's), the first proof
+    (random.Random(1), the path's first proof byte for byte) and, with
+    n_steady, steady proves, verify and a tampered proof rejected; with
+    profile, one profiled prove.  No kernel D may launch: every
+    full-length commitment runs CachedMSM.  The params' engine is restored
+    after."""
+    from halo2_tpu_torch.api import keygen
+    from halo2_tpu_torch.engine import GpuMsmEngine, PlonkEngineConfig
+
+    def body():
+        spk, t = timed(torch, lambda: keygen(pk.vk.F, params, pk.vk.k,
+                                             circuit))
+        if spk.vk.pinned() != pk.vk.pinned():
+            raise AssertionError(f"{tag}: VK differs from the path's")
+        log(f"[{tag}] keygen {t:.2f} s (the sorted tables built in it); VK "
+            f"equals the path's")
+        if n_steady:
+            proof = prove_verify(torch, tag, cfg, params, spk, circuit, inst,
+                                 n_steady)
+        else:
+            proof, t = timed(torch, lambda: cfg.prove(
+                spk, [circuit], [inst], random.Random(1), params=params))
+            log(f"[{tag}] prove (first) {t:.3f} s")
+        if proof != first_proof:
+            raise AssertionError(f"{tag}: the first proof differs from the "
+                                 f"stream engine's")
+        log(f"[{tag}] the first proof equals the stream engine's byte for "
+            f"byte")
+        return spk
+
+    saved = params.engine
+    params.set_engine(PlonkEngineConfig.set_msm(GpuMsmEngine(style="sorted")))
+    try:
+        spk = run_path(torch, tag, counts, need, body)
+        if counts[tag].get("h2_stream_bucket", 0) or \
+                counts[tag].get("h2_msm_order", 0):
+            raise AssertionError(f"{tag}: kernel D or the ordering pass ran "
+                                 f"under the sorted engine")
+        if profile:
+            profile_prove(torch, tag, cfg, params, spk, circuit, inst)
+    finally:
+        params.set_engine(saved)
 
 
 @contextlib.contextmanager

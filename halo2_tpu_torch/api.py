@@ -26,10 +26,13 @@ from .frontend import WitnessCalculator, compile_circuit
 from .frontend.circuit import configure_circuit
 from .frontend.constraint_system import ConstraintSystem
 from .plonk.errors import VerifyError
-from .commit import ProverIPA, SingleStrategyIPA, VerifierIPA, new_rng
+from .commit import (ParamsIPA, ProverIPA, SingleStrategyIPA,  # noqa: F401
+                     VerifierIPA, new_rng)
 from .engine import PlonkEngine
 from .plonk import Prover
 from .plonk import keygen as backend_keygen
+from .plonk.verifier import (  # noqa: F401
+    verify_proof as backend_verify_queries)
 from .plonk.verifier import verify_proof_single
 from .transcript import Blake2bRead, Blake2bWrite
 

@@ -15,6 +15,10 @@ class Blind:
     def __init__(self, value: int = 0):
         self.value = int(value)
 
+    @staticmethod
+    def random(Fr, rng) -> "Blind":
+        return Blind(rng.randrange(Fr.p))
+
     def __repr__(self):
         return f"Blind({self.value})"
 

@@ -214,6 +214,15 @@ class MSMKZG:
         p = self.params.curve.Fr.p
         self.scalars = [s * factor % p for s in self.scalars]
 
+    def combine_with_base(self, base: int):
+        """Horner folding of the scalars: the i-th of m times base^(m-1-i)
+        (kzg/msm.rs:37-46)."""
+        p = self.params.curve.Fr.p
+        acc = 1
+        for i in range(len(self.scalars) - 1, -1, -1):
+            self.scalars[i] = self.scalars[i] * acc % p
+            acc = acc * base % p
+
     def eval_affine(self):
         """Evaluate on the host: verifier MSMs have tens of terms."""
         terms = [(s, b) for s, b in zip(self.scalars, self.bases)
@@ -225,21 +234,36 @@ class MSMKZG:
 
 
 class PreMSM:
-    """Collects projective device points so that all of them share one
-    batched normalization and one host fetch (kzg/msm.rs:96-137)."""
+    """Collects (scalar, projective device point) terms so that all the
+    points share one batched normalization and one host fetch
+    (kzg/msm.rs:96-137).  Takes params or a curve; `to_msm` needs params."""
 
-    def __init__(self, curve):
-        self.curve = curve
+    def __init__(self, params_or_curve):
+        self.params = params_or_curve
+        self.curve = getattr(params_or_curve, "curve", params_or_curve)
+        self.scalars: List[int] = []
         self.points = []
 
     def append_term(self, scalar: int, point_proj):
-        assert scalar == 1, "the prover only collects commitments"
+        self.scalars.append(scalar % self.curve.Fr.p)
         self.points.append(point_proj)
 
+    def add_msm(self, other: "PreMSM"):
+        self.scalars.extend(other.scalars)
+        self.points.extend(other.points)
+
     def normalize(self) -> List:
+        """Every collected point as affine ints (None for the identity)."""
         if not self.points:
             return []
         return self.curve.to_affine_ints(torch.stack(self.points, dim=0))
+
+    def to_msm(self) -> MSMKZG:
+        """The host MSM of the collected terms, the points normalized."""
+        m = MSMKZG(self.params)
+        m.scalars = list(self.scalars)
+        m.bases = self.normalize()
+        return m
 
 
 class DualMSM:

@@ -39,6 +39,11 @@ class Curve:
         zero = F.zeros(tuple(shape), device)
         return torch.stack([zero, F.ones(tuple(shape), device), zero], dim=-2)
 
+    def generator(self, shape=(), device="cuda") -> torch.Tensor:
+        """The curve's generator, (*shape, 3, 8) on `device`."""
+        g = self.from_affine_ints([(self.gen_x, self.gen_y)], device)[0]
+        return g.expand(tuple(shape) + tuple(g.shape)).contiguous()
+
     def from_affine_ints(self, pts, device) -> torch.Tensor:
         """[(x, y) or None (identity), ...] -> (n, 3, 8)."""
         F = self.Fq

@@ -8,23 +8,15 @@ from __future__ import annotations
 
 import torch
 
-from ..ntt import powers
+from ..ntt import bit_reverse_indices, powers
 from .curve import Curve
-
-
-def _bit_reverse(log_n: int, device) -> torch.Tensor:
-    idx = torch.arange(1 << log_n, device=device)
-    rev = torch.zeros_like(idx)
-    for b in range(log_n):
-        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-    return rev
 
 
 def _point_transform(curve: Curve, pts, log_n: int, tw):
     """Radix-2 decimation-in-time transform of (n, 3, 8) points with the
     twiddle powers tw (n / 2, 8)."""
     n = 1 << log_n
-    a = pts[_bit_reverse(log_n, pts.device)]
+    a = pts[bit_reverse_indices(log_n, pts.device)]
     for s in range(1, log_n + 1):
         m = 1 << s
         half = m // 2

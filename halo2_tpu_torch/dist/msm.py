@@ -5,11 +5,12 @@ The bucket work stays on each shard; the only traffic is one projective
 point a shard (`all_gather` of (D, 3, 8)), after which the partial sums
 are added by a tree sum (kernel B).
 
-`ShardedCachedMSM` is the fixed-base form: the reference shards its sorted
-window tables (`window_bases`), which the port does not have; here each
-shard holds a `StreamMSM` over its slice of the bases (kernel D, or
-kernel 8 where a shard's slice passes MAX_BAKED_ROWS).  The result is the
-same group element, not the same projective words.
+`ShardedCachedMSM` is the fixed-base form: each shard holds a descriptor
+of the engine's style over its slice of the bases.  "sorted" is the
+reference's design, one `CachedMSM` a shard (its window tables, kernel 9);
+"stream" one `StreamMSM` a shard (kernel D, or kernel 8 where a shard's
+slice passes MAX_BAKED_ROWS).  The result is the same group element, not
+the same projective words.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from ..curves.curve import Curve
 from ..fields.field import NWORDS
 from ..msm.bucket_scan import msm_variable, point_tree_sum
+from ..msm.msm import CachedMSM
 from ..msm.stream_msm import StreamMSM
 from .mesh import Mesh, all_gather, on_device, shard_rows
 
@@ -50,21 +52,30 @@ def sharded_msm(mesh: Mesh, curve: Curve, scalars_mont, points, c: int = 8,
 
 class ShardedCachedMSM:
     """Fixed-base MSM descriptor with the bases sharded over the mesh: one
-    `StreamMSM` a shard over its n / D bases, built once; calling it with
+    descriptor a shard over its n / D bases, built once: a `CachedMSM` of
+    window width c (None: `auto_c(n / D)`) and scan block `block`
+    with style "sorted", a `StreamMSM` with "stream".  Calling it with
     (m <= n, 8) scalars returns one projective point (3, 8) on their
     device."""
 
-    def __init__(self, mesh: Mesh, curve: Curve, points):
+    def __init__(self, mesh: Mesh, curve: Curve, points, c: int | None = None,
+                 block: int | None = None, style: str = "stream"):
         self.mesh = mesh
         self.curve = curve
         self.n = points.shape[0]
         if self.n % mesh.size:
             raise ValueError(f"n={self.n} not divisible by mesh size "
                              f"{mesh.size}")
+        if style not in ("stream", "sorted") or \
+                (style == "stream" and c is not None):
+            raise ValueError(f"no sharded descriptor of style {style!r} "
+                             f"with c={c}")
+        sorted_ = style == "sorted"
         self.engines = []
         for slab in shard_rows(mesh, points):
             with on_device(slab.device):
-                self.engines.append(StreamMSM(curve, slab))
+                self.engines.append(CachedMSM(curve, slab, c, block)
+                                    if sorted_ else StreamMSM(curve, slab))
 
     def __call__(self, scalars_mont):
         m = scalars_mont.shape[0]

@@ -183,6 +183,12 @@ class Field:
     def square(self, a):
         return self.mul(a, a)
 
+    def mul_pow2(self, a, k: int):
+        """a 2^k by k doublings (small k only)."""
+        for _ in range(k):
+            a = self.add(a, a)
+        return a
+
     def to_mont(self, a_canonical):
         return self.mul(a_canonical, self._const("r2", a_canonical.device))
 
@@ -263,6 +269,15 @@ class Field:
 
     def is_zero(self, a):
         return (a == 0).all(dim=-1)
+
+    def select(self, cond, a, b):
+        """cond ? a : b elementwise, cond shaped like the batch dims."""
+        cond = torch.as_tensor(cond, device=a.device)
+        return torch.where(cond[..., None], a, b)
+
+    def rand_ints(self, n: int, rng) -> list:
+        """n canonical elements drawn from `rng` (a random.Random)."""
+        return [rng.randrange(self.p) for _ in range(n)]
 
     def __repr__(self):
         return f"Field({self.name})"

@@ -1,4 +1,5 @@
-from .msm import msm, naive_msm, point_tree_sum
+from .msm import CachedMSM, msm, naive_msm, pippenger_msm, point_tree_sum
 from .stream_msm import StreamMSM
 
-__all__ = ["msm", "naive_msm", "point_tree_sum", "StreamMSM"]
+__all__ = ["msm", "naive_msm", "pippenger_msm", "point_tree_sum",
+           "CachedMSM", "StreamMSM"]

@@ -1,7 +1,10 @@
 """Bucket machinery of the MSMs (port of the JAX reference's
 msm/bucket_scan.py): signed-digit windows, the weighted bucket fold, the
-Horner combine over windows, and the variable-base MSM `msm_variable` on
-kernel 9 (csrc/scan.cu), the segmented scan over a key-sorted stream.
+Horner combine over windows, and the sorted MSMs on kernel 9
+(csrc/scan.cu), the segmented scan over a key-sorted stream: the
+variable-base `msm_variable`, and the pieces of the sorted fixed-base
+`msm.CachedMSM` (`msm_windowed_cached` and `msm_packed_rows` on a baked
+window table, `msm_unbaked_rows` and `shift_add` on an unbaked one).
 
 Variable-base pipeline (the reference's `best_multiexp`):
 
@@ -204,6 +207,13 @@ def pack_affine_rows(aff_xy, inf):
                       torch.zeros_like(flag)], dim=1)
 
 
+def affine_rows(curve: Curve, points):
+    """(m, 3, 8) projective points -> (m, 18) affine rows: one batched
+    normalisation and the packing."""
+    return pack_affine_rows(curve.batch_normalize(points),
+                            curve.is_identity(points))
+
+
 def scan_level_plain(curve: Curve, keys, pts, block: int, mode: int):
     """Plain version of kernel 9.  keys (M,) int32 non-decreasing, M a
     multiple of block; pts (M, 18) affine rows (AFFINE / PACKED) or (M, 3, 8)
@@ -363,29 +373,91 @@ def bucket_sums(curve: Curve, keys, rows, n_keys: int, block: int = None,
 
 
 # ----------------------------------------------------------------------
-# the variable-base MSM
+# the sorted MSMs: one stable sort by bucket key, a gather of the rows,
+# the segmented scan, the weighted fold
 # ----------------------------------------------------------------------
+
+def unpack_affine_rows(rows):
+    """(M, 18) rows -> ((M, 16) x and y words, (M,) infinity mask)."""
+    return rows[:, :2 * NWORDS], (rows[:, 2 * NWORDS] & 1) != 0
+
+
+def sort_perm(keys):
+    """(keys sorted, permutation) of (M,) keys by one stable sort, as the
+    reference's `lax.sort`; the permutation is an int64 gather index."""
+    keys_s, perm = torch.sort(keys.to(torch.int64), stable=True)
+    return keys_s.to(keys.dtype), perm
+
+
+def packed_digits(curve: Curve, scalars_mont, c: int):
+    """(n, 8) scalars -> (nw, n) int32 keys |d| * 2 + sign of the balanced
+    base-2^c digits: the sign rides in the key's low bit through the sort
+    and kernel 9 negates y on odd keys."""
+    keys, signs = _signed_digits(curve.Fr, scalars_mont, c)
+    return keys * 2 + signs.to(torch.int32)
+
+
+def msm_packed_rows(curve: Curve, packed_keys, rows, c: int,
+                    block: int = None):
+    """One sort and one segmented scan over (key, row) pairs that share one
+    space of 2^(c-1)+1 buckets, then the weighted fold.  packed_keys: any
+    shape, M keys in all; rows (M, 18) affine rows of a baked table, the
+    window factor 2^(c w) already in them, so any subset of windows reduces
+    on its own and the partial results add (`CachedMSM`'s window chunks)."""
+    keys_s, perm = sort_perm(packed_keys.reshape(-1))
+    buckets = bucket_sums(curve, keys_s, rows[perm], (1 << (c - 1)) + 1,
+                          block, packed=True)
+    return weighted_bucket_fold(curve, buckets)
+
+
+def msm_windowed_cached(curve: Curve, scalars_mont, rows, c: int = 13,
+                        block: int = None):
+    """Fixed-base MSM of (n, 8) scalars against a baked table of
+    (nw n_max, 18) rows, row w n_max + i = [2^(c w)] P_i (n <= n_max: the
+    first n bases of every window)."""
+    n = scalars_mont.shape[0]
+    nw = n_windows_for(curve.Fr, c)
+    n_max = rows.shape[0] // nw
+    if n != n_max:
+        rows = rows.reshape(nw, n_max, ROW_WORDS)[:, :n].reshape(
+            -1, ROW_WORDS)
+    return msm_packed_rows(curve, packed_digits(curve, scalars_mont, c),
+                           rows, c, block)
+
+
+def msm_unbaked_rows(curve: Curve, packed_keys, base_rows, c: int,
+                     block: int = None):
+    """MSM of wc consecutive windows against unbaked rows: packed_keys
+    (wc, n) |d| * 2 + sign, base_rows (n, 18) (the window factor not
+    applied).  Each window's bucket space is tagged into one key stream,
+    one sort and one scan reduce them all (the gather reads row
+    perm % n), then a weighted fold per window and the Horner combine with
+    c doublings per window (kernel B's chain).  Returns
+    sum_{i < wc} fold_i 2^(c i); the caller scales a chunk by 2^(c w0)."""
+    wc, n = packed_keys.shape
+    nb = (1 << (c - 1)) + 1
+    window = torch.arange(wc, dtype=torch.int32,
+                          device=packed_keys.device)[:, None]
+    keys = ((packed_keys >> 1) + window * nb) * 2 + (packed_keys & 1)
+    keys_s, perm = sort_perm(keys.reshape(-1))
+    buckets = bucket_sums(curve, keys_s, base_rows[perm % n], wc * nb,
+                          block, packed=True)
+    per_window = weighted_bucket_fold(
+        curve, buckets.reshape(wc, nb, 3, NWORDS).transpose(0, 1))
+    return horner_windows(curve, per_window, c)
+
+
+def shift_add(curve: Curve, acc, k_doublings: int, part):
+    """acc 2^k_doublings + part, the chunk combine of an unbaked
+    `CachedMSM`: one launch of kernel B's Horner chain over (part, acc),
+    whose first k doublings are of the identity."""
+    return horner_windows(curve, torch.stack([part, acc]), k_doublings)
+
 
 def msm_variable(curve: Curve, scalars_mont, points, c: int = 8,
                  block: int = None):
-    """Variable-base MSM (the general `best_multiexp`): per-window bucket
-    spaces tagged into one key stream, one stable sort, the segmented scan
-    (block: every level's, or None for `block_for`), then a weighted fold
-    per window and a Horner combine over windows."""
-    n = scalars_mont.shape[0]
-    nw = n_windows_for(curve.Fr, c)
-    nb_keys = (1 << (c - 1)) + 1
-    digits, signs = _signed_digits(curve.Fr, scalars_mont, c)
-    rows = pack_affine_rows(curve.batch_normalize(points),
-                            curve.is_identity(points))
-    window = torch.arange(nw, dtype=torch.int32,
-                          device=digits.device)[:, None]
-    keys = ((digits + window * nb_keys) * 2 +
-            signs.to(torch.int32)).reshape(-1)
-    keys_s, perm = torch.sort(keys.to(torch.int64), stable=True)
-    # the window-tiled stream is rows[i % n]: gather from the n-row table
-    buckets = bucket_sums(curve, keys_s.to(torch.int32), rows[perm % n],
-                          nw * nb_keys, block, packed=True)
-    per_window = weighted_bucket_fold(
-        curve, buckets.reshape(nw, nb_keys, 3, NWORDS).transpose(0, 1))
-    return horner_windows(curve, per_window, c)
+    """Variable-base MSM (the general `best_multiexp`): the points packed
+    as affine rows once, then `msm_unbaked_rows` over every window (block:
+    every scan level's, or None for `block_for`)."""
+    return msm_unbaked_rows(curve, packed_digits(curve, scalars_mont, c),
+                            affine_rows(curve, points), c, block)

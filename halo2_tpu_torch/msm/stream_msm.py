@@ -41,8 +41,8 @@ from .._build import I32, P, Kernel, library, stream_of
 from ..curves.cuda_ec import ec_madd_plain
 from ..curves.curve import Curve
 from ..fields.cuda_ops import NWORDS, SUB, binop_plain
-from .bucket_scan import (ROW_WORDS, _signed_digits, horner_windows,
-                          n_windows_for, pack_affine_rows, point_prefix_sum,
+from .bucket_scan import (ROW_WORDS, affine_rows, horner_windows,
+                          n_windows_for, packed_digits, point_prefix_sum,
                           weighted_bucket_fold)
 
 STREAM_C = 6                       # window width: 43 windows, 33 buckets
@@ -107,23 +107,20 @@ def bake_stream_table(curve: Curve, points):
                 for _ in range(c):
                     cur = curve.double(cur)
         pts = torch.cat(group, dim=0)
-        out.append(pack_affine_rows(curve.batch_normalize(pts),
-                                    curve.is_identity(pts)))
+        out.append(affine_rows(curve, pts))
     return torch.cat(out, dim=0)
 
 
 def pack_base_stream_table(curve: Curve, points):
     """The unbaked table: the n bases once, affine and packed (window factor
     not applied).  Returns (n, 18)."""
-    return pack_affine_rows(curve.batch_normalize(points),
-                            curve.is_identity(points))
+    return affine_rows(curve, points)
 
 
 def stream_keys(curve: Curve, scalars_mont):
     """(n, 8) scalars -> (nw, n) int32 keys |d| * 2 + sign of the balanced
     base-2^c digits."""
-    keys, signs = _signed_digits(curve.Fr, scalars_mont, STREAM_C)
-    return (keys * 2 + signs.to(torch.int32)).contiguous()
+    return packed_digits(curve, scalars_mont, STREAM_C).contiguous()
 
 
 # ----------------------------------------------------------------------
@@ -360,6 +357,14 @@ def reset_stream_counters():
     _TOTALS["added"].clear()
 
 
+def auto_c_stream(n: int) -> int:
+    """The stream MSM's window width for n bases: STREAM_C at every n, the
+    width kernels D and 8 are built for (32 nonzero buckets a window).  The
+    reference's narrower width below 2^10 bases and its environment
+    override have no counterpart."""
+    return STREAM_C
+
+
 class StreamMSM:
     """Fixed-base MSM descriptor: the table of `points` (n, 3, 8), built
     once (baked while nw n <= MAX_BAKED_ROWS, else unbaked); calling it
@@ -374,6 +379,11 @@ class StreamMSM:
             self.table = bake_stream_table(curve, points)
         else:
             self.table = pack_base_stream_table(curve, points)
+
+    @property
+    def wbases(self):
+        """The table (rows, 18)."""
+        return self.table
 
     def __call__(self, scalars_mont):
         m = scalars_mont.shape[0]

@@ -1,4 +1,4 @@
 from .fused import FusedNTT
-from .ntt import get_ntt, powers
+from .ntt import NTT, bit_reverse_indices, get_ntt, powers
 
-__all__ = ["FusedNTT", "get_ntt", "powers"]
+__all__ = ["FusedNTT", "NTT", "bit_reverse_indices", "get_ntt", "powers"]

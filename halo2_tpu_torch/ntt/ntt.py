@@ -14,6 +14,23 @@ from ..fields.field import Field
 from .fused import FusedNTT
 
 
+def bit_reverse_indices(log_n: int, device="cuda") -> torch.Tensor:
+    """The bit-reversal permutation of 2^log_n indices (int64)."""
+    idx = torch.arange(1 << log_n, device=device)
+    rev = torch.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+class NTT(FusedNTT):
+    """The reference's NTT over one (field, n, omega): the four-step
+    transform around kernel C, on `device`; `forward` / `inverse`."""
+
+    def __init__(self, F: Field, log_n: int, omega_int: int, device="cuda"):
+        super().__init__(F, log_n, omega_int, device)
+
+
 def powers(F: Field, base, n: int):
     """[1, base, ..., base^(n-1)] as (n, 8) words; base an encoded (8,)
     element.  Doubling construction: log2(n) batched multiplies."""
@@ -30,7 +47,7 @@ _CACHE: dict = {}
 
 
 def get_ntt(F: Field, log_n: int, device,
-            omega_int: int | None = None) -> FusedNTT:
+            omega_int: int | None = None) -> NTT:
     """NTT over the canonical 2^log_n subgroup of F (or a custom omega)."""
     if omega_int is None:
         assert log_n <= F.S
@@ -38,5 +55,5 @@ def get_ntt(F: Field, log_n: int, device,
     key = (F.p, log_n, omega_int, str(device))
     ntt = _CACHE.get(key)
     if ntt is None:
-        ntt = _CACHE[key] = FusedNTT(F, log_n, omega_int, device)
+        ntt = _CACHE[key] = NTT(F, log_n, omega_int, device)
     return ntt

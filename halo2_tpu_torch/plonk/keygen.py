@@ -72,6 +72,11 @@ class ConstraintSystemBack:
         factors = max(self.num_advice_queries + [1])
         return max(3, factors) + 1 + 1
 
+    def usable_rows(self, n: int) -> int:
+        """Rows of a 2^k domain left for the witness: n less the blinding
+        rows and the last row."""
+        return n - (self.blinding_factors() + 1)
+
 
 class PermutationAssembly:
     """Cycle merge (permutation/keygen.rs:20-118)."""
@@ -252,3 +257,8 @@ def keygen(F: Field, params, compiled: CompiledCircuit, k: int,
                       PermutationPK(sigmas, sigma_polys, sigma_cosets),
                       Evaluator(F, domain, cs_back))
 
+
+def keygen_vk(F: Field, params, compiled: CompiledCircuit,
+              k: int) -> VerifyingKey:
+    """The verifying key alone: `keygen(...).vk`, as in the reference."""
+    return keygen(F, params, compiled, k).vk

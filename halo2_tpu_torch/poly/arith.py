@@ -27,10 +27,15 @@ def tree_sum(F: Field, a, dim: int = -2):
 
 
 def _eval_stack(F: Field, polys, x):
-    """(P, n, 8) coefficient stack at one encoded point x -> (P, 8)."""
+    """(..., n, 8) coefficient stack at one encoded point x -> (..., 8)."""
     n = polys.shape[-2]
     xs = powers(F, x, 1 << max(n - 1, 0).bit_length())[:n]
     return tree_sum(F, F.mul(polys, xs), dim=-2)
+
+
+def eval_polynomial(F: Field, poly, x):
+    """Coefficients (..., n, 8) at one encoded point x (8,) -> (..., 8)."""
+    return _eval_stack(F, unwrap(poly, COEFF, "eval_polynomial"), x)
 
 
 def eval_polys_at_points(F: Field, requests):

@@ -60,6 +60,10 @@ class Poly:
     def __getitem__(self, idx) -> "Poly":
         return Poly(self.values[idx], self.basis)
 
+    def map(self, fn) -> "Poly":
+        """fn applied to the values, the basis kept."""
+        return Poly(fn(self.values), self.basis)
+
     def __repr__(self):
         return f"Poly<{self.basis}>{tuple(self.values.shape)}"
 

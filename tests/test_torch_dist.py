@@ -4,7 +4,8 @@ reference, case for case with tests/test_dist.py: the port's shards are
 virtual CPU devices.  NTTs go through the reference's own ShardedNTT and
 must be equal word for word; the prefix product is held against the
 reference's single-device `prefix_product`, the MSMs against its host MSM
-(`host_msm`), as group elements.  The NTT and prefix product cases run on
+(`host_msm`), as group elements (ShardedCachedMSM in both engine styles:
+a StreamMSM a shard, or, sorted, a CachedMSM a shard on 4 shards).  The NTT and prefix product cases run on
 both sides of `cuda_ops.on_ints` (python ints, then int64 limbs); the MSM
 cases' points stay on the python-int side (the limbs side of the same
 per-shard MSMs takes about 35 s a case here, and test_torch_msm*.py hold
@@ -34,6 +35,7 @@ from halo2_tpu_torch.dist import (ROW_AXIS, Mesh, ShardedCachedMSM,
 from halo2_tpu_torch.dist.multihost import global_mesh, hybrid_mesh
 from halo2_tpu_torch.engine import GpuMsmEngine, PlonkEngineConfig
 from halo2_tpu_torch.fields import BN254_FR, PASTA_FP, cuda_ops
+from halo2_tpu_torch.msm.msm import CachedMSM, auto_c
 
 from tests.test_curves_msm import py_mul
 
@@ -126,6 +128,35 @@ def test_sharded_cached_msm_matches_reference(mesh):
     got = engine(BN254_G1.Fr.encode_ints(scalars[:20], "cpu"))
     assert _affine(BN254_G1, got) == [ref_host_msm(REF_G1, scalars[:20],
                                                    pts[:20])]
+
+
+def test_sorted_sharded_cached_msm_matches_reference():
+    """The sorted style on 4 CPU shards, the reference's design: one
+    CachedMSM (window tables) a shard and the shard partials added, built
+    by the engine from its style, c and block."""
+    mesh = make_mesh(4, "cpu")
+    n = 32
+    pts, rng = _points(REF_VESTA, n, 13, 300)
+    pts[5] = None                       # identity base
+    scalars = [rng.randrange(VESTA.Fr.p) for _ in range(n)]
+    bases = VESTA.from_affine_ints(pts, "cpu")
+    engine = GpuMsmEngine(mesh=mesh, style="sorted", c=8, block=8)
+    desc = engine.get_base_descriptor(VESTA, bases)
+    assert isinstance(desc, ShardedCachedMSM)
+    assert [(type(e), e.n, e.c) for e in desc.engines] == \
+        [(CachedMSM, 8, 8)] * 4
+    got = desc(VESTA.Fr.encode_ints(scalars, "cpu"))
+    assert _affine(VESTA, got) == [ref_host_msm(REF_VESTA, scalars, pts)]
+    got = desc(VESTA.Fr.encode_ints(scalars[:20], "cpu"))
+    assert _affine(VESTA, got) == [ref_host_msm(REF_VESTA, scalars[:20],
+                                                pts[:20])]
+    # the window width defaults to auto_c of a shard's bases
+    assert ShardedCachedMSM(mesh, VESTA, bases, style="sorted"
+                            ).engines[0].c == auto_c(8)
+    with pytest.raises(ValueError):
+        ShardedCachedMSM(mesh, VESTA, bases, c=8)     # stream: no width
+    with pytest.raises(ValueError):
+        ShardedCachedMSM(mesh, VESTA, bases, style="bucket")
 
 
 def test_sharded_prefix_product_matches_reference(mesh, path):

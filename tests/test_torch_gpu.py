@@ -1,6 +1,7 @@
 """Kernels A-D, 8-15, kernel B's chains and the ordering pass of
 halo2_tpu_torch (BN254 and Pasta instances) against their plain PyTorch
-versions on a CUDA device, and GPU proofs (KZG / SHPLONK, IPA, and the
+versions on a CUDA device, the sorted fixed-base MSM (CachedMSM) against
+StreamMSM and the CPU, and GPU proofs (KZG / SHPLONK, IPA, and the
 shuffle circuit on KZG / GWC / Keccak256) against CPU proofs; key and
 params serde and the MockProver on the card against the CPU.  Every test
 needs the card and skips without one.  The file
@@ -284,6 +285,32 @@ def test_kernel_8_matches_plain_and_naive(C, cuda):
         _check_stream_pass(C, sm.stream_keys(C, s), table, True)
         assert C.to_affine_ints(sm.msm_stream_unbaked(C, s, table)[None]) \
             == C.to_affine_ints(naive_msm(C, s, bases)[None])
+
+
+def test_cached_msm_matches_stream_msm_and_cpu(cuda):
+    """The sorted fixed-base MSM on the card (kernel 9, B and the sort),
+    baked in one chunk and in window chunks, and unbaked in chunks that
+    shift_add combines, against StreamMSM on the same bases and the
+    CPU-plain CachedMSM, all scalars and fewer."""
+    from halo2_tpu_torch.msm import CachedMSM
+    n = 1 << 10
+    for G in (C, VESTA):
+        bases = G.generator_mul(G.Fr.encode_ints(_ints(G.Fr.p, n - 3, 13),
+                                                 cuda))
+        bases[5] = G.identity((1,), cuda)[0]
+        stream = StreamMSM(G, bases)
+        s = G.Fr.encode_ints(_ints(G.Fr.p, n - 3, 14), cuda)
+        for m in (n, 700):
+            want = G.to_affine_ints(stream(s[:m])[None])
+            for kw in (dict(), dict(max_rows=8 * n),
+                       dict(max_rows=8 * n, max_baked_rows=1)):
+                desc = CachedMSM(G, bases, c=8, **kw)
+                assert desc.baked == ("max_baked_rows" not in kw)
+                assert G.to_affine_ints(desc(s[:m])[None]) == want, (m, kw)
+        cpu = CachedMSM(G, bases[:256].cpu(), c=8)
+        card = CachedMSM(G, bases[:256], c=8)
+        assert G.to_affine_ints(cpu(s[:256].cpu())[None]) == \
+            G.to_affine_ints(card(s[:256])[None])
 
 
 @pytest.mark.parametrize("C", [C, PALLAS, VESTA],

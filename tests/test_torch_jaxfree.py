@@ -4,7 +4,7 @@ middleware, serde, batch verifier and examples too), proves plonk_api with
 KZG / SHPLONK and with IPA over Vesta at k=5 (the smallest k plonk_api
 fits) on the CPU, verifies both proofs and rejects tampered ones, runs the
 MockProver and a vk_write / vk_read round trip (and imports the
-multi-device layer, dist/); and no file of the port or of chip_smoke.py
+multi-device layer, dist/, and the sorted MSM's names); and no file of the port or of chip_smoke.py
 names the JAX package."""
 
 import os
@@ -44,6 +44,18 @@ import halo2_tpu_torch.dist.ntt
 import halo2_tpu_torch.dist.scan
 import halo2_tpu_torch.middleware
 import halo2_tpu_torch.plonk.batch
+from halo2_tpu_torch.api import ParamsIPA, backend_verify_queries
+from halo2_tpu_torch.commit import create_opening_proof, verify_opening_proof
+from halo2_tpu_torch.engine import GpuMsmEngine, PlonkEngineConfig
+from halo2_tpu_torch.msm import CachedMSM, pippenger_msm
+from halo2_tpu_torch.msm.bucket_scan import (
+    msm_packed_rows, msm_unbaked_rows, msm_windowed_cached, packed_digits,
+    shift_add, sort_perm, unpack_affine_rows)
+from halo2_tpu_torch.msm.msm import default_cached_msm, window_bases
+from halo2_tpu_torch.msm.stream_msm import auto_c_stream
+from halo2_tpu_torch.ntt import NTT, bit_reverse_indices
+from halo2_tpu_torch.plonk import VerifyError, evaluate_expression, keygen_vk
+from halo2_tpu_torch.poly import eval_polynomial
 
 def run(F, params, k, **kw):
     circuit, inst = plonk_api.plonk_api_instance(F)

@@ -97,9 +97,12 @@ one-process one.  Kernels
 10-15 are held against their plain versions at the bench's and the
 probes' shapes, and
 timed beside the PyTorch call that computes the same function where there
-is one (gather: `index_select`, transposes: `.t().contiguous()`); the
-measured IMAD rates (kernels 10 and 12) are printed beside the guide's,
-with each kernel's share of its bound at both.  Any failure exits
+is one (gather: `index_select`, transposes: `.t().contiguous()`);
+kernels 10 and 11 also at a tail (2^12 K + 3 elements, K a thread's) and
+below one block, and against the least multiplies a schoolbook Montgomery
+product needs, their own SASS count beside it; kernel 12 also in its
+IMAD.WIDE form; every kernel's share of its bound is printed at the
+guide's IMAD rate and at kernel 12's measured rate.  Any failure exits
 non-zero.
 The line before the last is a JSON object of per-kernel results (time,
 plain version's time, bound, launches); the last line is
@@ -276,11 +279,14 @@ def main() -> int:
     log_cost_model(len(kzg_proof), len(ipa_proof))
     with phase(f"bench micro k={K_MAIN}", walls):
         run_bench_micro(torch, dev, counts)
+    with phase("kernel 12 at (8, 2^21)", walls):
+        results["h2_u32_mul_repeat"] = check_kernel_12(torch, dev, bound)
     with phase("kernel 10 at 2^21", walls):
-        results["h2_mont_repeat"] = check_kernel_10(torch, dev, bound)
+        results["h2_mont_repeat"] = check_kernel_10(torch, dev, bound,
+                                                    results)
     with phase("probes", walls):
         run_probes(torch, counts)
-    with phase("kernels 11-15 at the probes' shapes", walls):
+    with phase("kernels 11, 13-15 at the probes' shapes", walls):
         check_probes(torch, dev, bound, results)
 
     for name, r in results.items():
@@ -427,26 +433,18 @@ def c_per_product(bound, tag) -> float:
         / BUTTERFLIES_PER_ROUND
 
 
-def least_multiplies(F) -> int:
-    """Multiplier instructions an 8-word Montgomery product needs at least:
-    a b's 64 word products, then per word of the reduction one for its
-    quotient and one per nonzero word of p (Pasta's p has three zero
-    words)."""
-    nonzero = sum(1 for i in range(8) if (F.p >> (32 * i)) & 0xFFFFFFFF)
-    return 64 + 8 * (1 + nonzero)
-
-
 def ntt_bound(bound, F, tag, lm, cols):
     """One plain pass of kernel C, 2^lm points on `cols` columns: bytes in +
     out + the m/2 powers; the products this pass does (`c_products`) at
     C's own multiplier instructions per product.  `least_bound_ms`: the
-    same at the product's least multiplies (`least_multiplies`), as C's
-    own count includes what ptxas left unfused."""
+    same at the product's least multiplies (`card.least_multiplies`), as
+    C's own count includes what ptxas left unfused."""
+    from halo2_tpu_torch.tools import card
     m = 1 << lm
     nbytes = 2 * 32 * m * cols + 32 * max(m // 2, 1)
     b = bound(nbytes, c_products(lm) * cols * c_per_product(bound, tag))
     b["least_bound_ms"] = bound(
-        nbytes, c_products(lm) * cols * least_multiplies(F))["bound_ms"]
+        nbytes, c_products(lm) * cols * card.least_multiplies(F))["bound_ms"]
     return b
 
 
@@ -580,7 +578,8 @@ def check_ntt(torch, dev, F, log_ns, seed: int, bound, tag: str):
         f"2^{lm} {ms:.4f} ms (device {dev_ms:.4f}) vs plain {plain:.1f} ms; "
         f"bound {b_['bound_ms']:.4f} ms ({b_['bound_by']}, "
         f"{c_per_product(bound, tag):.1f} multiplies a product; "
-        f"{b_['least_bound_ms']:.4f} ms at the least {least_multiplies(F)}); "
+        f"{b_['least_bound_ms']:.4f} ms at the least "
+        f"{card.least_multiplies(F)}); "
         f"whole "
         f"forward 2^{log_ns[-1]} {full:.3f} ms")
     return err, ms, plain, b_
@@ -1778,7 +1777,8 @@ def log_stream_build(torch):
                   ("k_stream_bucketI", "Bn254G1"),
                   ("k_stream_bucket_windowsI", "Bn254G1"),
                   ("k_stream_bucketI", "Vesta"),
-                  ("k_mont_repeat", "Bn254Fr"), ("k_u32_mul_repeat",)):
+                  ("k_mont_repeat", "Bn254Fr"), ("k_u32_mul_repeat",),
+                  ("k_wide_mul_repeat",)):
         log(f"[sass] {' '.join(parts)}: busiest loop "
             f"{card.loop_multiplies(parts)}")
 
@@ -2298,38 +2298,104 @@ def run_bench_micro(torch, dev, counts):
     log(f"[{tag}] {json.dumps(res)}")
 
 
-def mont_entry(torch, dev, F, tag, seed, bound, reps=64, n=1 << 21):
+def mont_entry(torch, dev, F, tag, seed, bound, u32_rate, reps=64,
+               n=1 << 21):
     """Kernel 10 / 11 on n canonical elements of F, `reps` products each:
-    equal to its plain version (reps calls of kernel A's plain product),
-    timed, and its multiply rate as IMAD per clock per SM."""
+    equal to its plain version (reps calls of kernel A's plain product), and
+    at reps 0, 1 and 7 on a tail (2^12 K + 3 elements, K the elements a
+    thread runs) and on fewer elements than one block; timed, with its
+    bound at the least multiplies a schoolbook product needs
+    (`card.least_multiplies`), its share at the guide's IMAD rate and at
+    kernel 12's measured `u32_rate`."""
+    from halo2_tpu_torch import _build
     from halo2_tpu_torch.tools import alu_probe as ap
     from halo2_tpu_torch.tools import card
+    per_thread = _build.library().h2_mont_elems_per_thread()
+    err = 0
+    for size, r in ((per_thread * 4096 + 3, 0), (per_thread * 4096 + 3, 1),
+                    (per_thread * 4096 + 3, 7), (100, 7)):
+        x = random_elems(torch, F, size, seed + 7, dev)
+        y = random_elems(torch, F, size, seed + 8, dev)
+        err = max(err, expect_equal(
+            torch, f"mont_repeat {F.name} x{r} at {size}",
+            ap.mont_repeat(F, x, y, r), ap.mont_repeat_plain(F, x, y, r)))
     a = random_elems(torch, F, n, seed, dev)
     b = random_elems(torch, F, n, seed + 1, dev)
     want, plain = card.timed(lambda: ap.mont_repeat_plain(F, a, b, reps))
-    err = expect_equal(torch, f"mont_repeat {F.name} x{reps}",
-                       ap.mont_repeat(F, a, b, reps), want)
+    err = max(err, expect_equal(torch, f"mont_repeat {F.name} x{reps}",
+                                ap.mont_repeat(F, a, b, reps), want))
     del want
     ms = card.cuda_ms(lambda: ap.mont_repeat(F, a, b, reps), 5)
-    per_mul = bound.per_elem("k_mont_repeat", tag)
-    b_ = bound(3 * 32 * n, n * reps * per_mul)
+    per_mul = card.mont_repeat_multiplies(tag)
+    kinds = {k: v / per_thread for k, v in
+             card.loop_multiplies(("k_mont_repeat", tag)).items()}
+    least = card.least_multiplies(F)
+    b_ = bound(3 * 32 * n, n * reps * least)
+    at_u32 = max(b_["bytes_ms"], b_["ops_ms"] * card.IMAD_PER_CLK_SM
+                 / u32_rate)
     imad = bound.imad_per_clk_sm(n * reps * per_mul / ms * 1e3)
-    log(f"[kernel 10/11] {F.name} x{reps} at 2^{n.bit_length() - 1}: equal; "
-        f"{ms:.3f} ms vs plain {plain:.1f} ms; bound {b_['bound_ms']:.3f} ms "
-        f"({b_['bound_by']}); {n * reps / ms / 1e6:.2f} G products/s, "
-        f"{per_mul} IMAD each: {imad:.1f} IMAD per clock per SM (the "
-        f"guide's {card.IMAD_PER_CLK_SM})")
-    return err, dict(ms=ms, plain_ms=plain, reps=reps, imad_per_product=per_mul,
-                     imad_per_clk_sm=imad, **b_)
+    regs = [r for fn, r in card.ptxas_report().items()
+            if "k_mont_repeat" in fn and tag in fn][0]
+    log(f"[kernel 10/11] {F.name} x{reps} at 2^{n.bit_length() - 1}: equal "
+        f"(and the tails); {ms:.4f} ms vs plain {plain:.1f} ms; K = "
+        f"{per_thread} elements a thread, {regs}; least-multiplies bound "
+        f"({least} a product) {b_['bound_ms']:.4f} ms at the guide's "
+        f"{card.IMAD_PER_CLK_SM} (share {b_['bound_ms'] / ms:.3f}), "
+        f"{at_u32:.4f} ms at kernel 12's {u32_rate:.1f} (share "
+        f"{at_u32 / ms:.3f}); its SASS: {per_mul:g} multipliers a product "
+        f"({kinds}); "
+        f"{n * reps / ms / 1e6:.2f} G products/s: {imad:.1f} IMAD per clock "
+        f"per SM")
+    return err, dict(ms=ms, plain_ms=plain, reps=reps,
+                     elems_per_thread=per_thread, imad_per_product=per_mul,
+                     multipliers_by_kind=kinds, products=n * reps,
+                     least_imad_per_product=least,
+                     imad_per_clk_sm=imad, **regs, **b_)
 
 
-def check_kernel_10(torch, dev, bound) -> dict:
+def check_kernel_10(torch, dev, bound, results) -> dict:
     """Kernel 10 (BN254 Fr) against its plain version at the bench's shape,
     rk = 2^21, with its first reps = 64 (the plain version: 64 products of
-    kernel A's plain version at 2^21, about 6 s)."""
+    kernel A's plain version at 2^21, about 6 s), and at its tails; shares
+    at kernel 12's rate, measured before it."""
     from halo2_tpu_torch.fields import BN254_FR
-    err, r = mont_entry(torch, dev, BN254_FR, "Bn254Fr", 61, bound)
+    err, r = mont_entry(torch, dev, BN254_FR, "Bn254Fr", 61, bound,
+                        results["h2_u32_mul_repeat"]["imad_per_clk_sm"])
     return _entry("mont_repeat", "alu.cu", "bench.py:249", err, root=None, **r)
+
+
+def check_kernel_12(torch, dev, bound) -> dict:
+    """Kernel 12, the u32 chain on (8, 2^21) lanes at its deepest probe
+    chain (1,024 steps), against its plain version: its IMAD rate is the
+    measured yardstick of every kernel's bound.  Its IMAD.WIDE form beside
+    it, the same way (an instance of the entry): the rate of the multiply
+    most of the carry-chain product's multiplies are, on independent
+    chains."""
+    from halo2_tpu_torch.tools import alu_probe as ap
+    from halo2_tpu_torch.tools import card
+    n, reps = 1 << 21, 1024
+    a, b = ap.random_u32((8, n), 65, dev), ap.random_u32((8, n), 66, dev)
+    err, runs = 0, {}
+    for wide in (False, True):
+        what = "IMAD.WIDE" if wide else "u32"
+        want, plain = card.timed(
+            lambda: ap.u32_mul_repeat_plain(a, b, reps, wide))
+        err = max(err, expect_equal(torch, f"{what} chain x{reps}",
+                                    ap.u32_mul_repeat(a, b, reps, wide), want))
+        del want
+        ms = card.cuda_ms(lambda: ap.u32_mul_repeat(a, b, reps, wide), 5)
+        steps = 8 * n * reps * (ap.WIDE_CHAINS if wide else 1)
+        b_ = bound(3 * 4 * 8 * n, steps)
+        imad = bound.imad_per_clk_sm(steps / ms * 1e3)
+        log(f"[kernel 12] {what} chain x{reps} on (8, 2^21): equal; "
+            f"{ms:.3f} ms vs plain {plain:.1f} ms; bound {b_['bound_ms']:.3f} "
+            f"ms ({b_['bound_by']}); {imad:.1f} {what} per clock per SM (the "
+            f"guide's {card.IMAD_PER_CLK_SM} IMAD)")
+        runs[what] = dict(ms=ms, plain_ms=plain, reps=reps,
+                          imad_per_clk_sm=imad, **b_)
+    return _entry("u32_mul_repeat", "alu.cu", "tools/alu_probe.py:81", err,
+                  root=None, instances={"IMAD.WIDE": runs["IMAD.WIDE"]},
+                  **runs["u32"])
 
 
 def run_probes(torch, counts):
@@ -2350,40 +2416,23 @@ def run_probes(torch, counts):
 
 
 def check_probes(torch, dev, bound, results):
-    """Rows 11-15 at the reference's shapes, each held word for word
+    """Rows 11 and 13-15 at the reference's shapes, each held word for word
     against its plain version and timed by CUDA events beside it and, for
     rows 13-15, beside the PyTorch call that computes the same function
     (`index_select`, `.t().contiguous()`): Montgomery products over BN254
-    Fq (2^21 x 64), the u32 chain on (8, 2^21) lanes (its deepest probe
-    chain, 1,024 steps), the gather of 20 2^18 rows from a 2^18-row table at
-    widths 128 and 64, and both transposes at R = 2^21."""
+    Fq (2^21 x 64, and its tails), the gather of 20 2^18 rows from a
+    2^18-row table at widths 128 and 64, and both transposes at R = 2^21."""
     from halo2_tpu_torch.fields import BN254_FQ
     from halo2_tpu_torch.tools import alu_probe as ap
     from halo2_tpu_torch.tools import card
     from halo2_tpu_torch.tools import dma_gather_probe as dg
     from halo2_tpu_torch.tools import transpose_probe as tp
-    err, r = mont_entry(torch, dev, BN254_FQ, "Bn254Fq", 63, bound)
+    err, r = mont_entry(torch, dev, BN254_FQ, "Bn254Fq", 63, bound,
+                        results["h2_u32_mul_repeat"]["imad_per_clk_sm"])
     results["h2_mont_repeat"]["max_abs_err"] = max(
         results["h2_mont_repeat"]["max_abs_err"], err)
     results["h2_mont_repeat"]["instances"] = {
         BN254_FQ.name: dict(replaces="tools/alu_probe.py:56", **r)}
-
-    n, reps = 1 << 21, 1024
-    a, b = ap.random_u32((8, n), 65, dev), ap.random_u32((8, n), 66, dev)
-    want, plain = card.timed(lambda: ap.u32_mul_repeat_plain(a, b, reps))
-    err = expect_equal(torch, f"u32_mul_repeat x{reps}",
-                       ap.u32_mul_repeat(a, b, reps), want)
-    del want
-    ms = card.cuda_ms(lambda: ap.u32_mul_repeat(a, b, reps), 5)
-    b_ = bound(3 * 4 * 8 * n, 8 * n * reps)
-    imad = bound.imad_per_clk_sm(8 * n * reps / ms * 1e3)
-    log(f"[kernel 12] u32 chain x{reps} on (8, 2^21): equal; {ms:.3f} ms vs "
-        f"plain {plain:.1f} ms; bound {b_['bound_ms']:.3f} ms "
-        f"({b_['bound_by']}); {imad:.1f} IMAD per clock per SM (the guide's "
-        f"{card.IMAD_PER_CLK_SM})")
-    results["h2_u32_mul_repeat"] = _entry(
-        "u32_mul_repeat", "alu.cu", "tools/alu_probe.py:81", err, root=None,
-        ms=ms, plain_ms=plain, reps=reps, imad_per_clk_sm=imad, **b_)
 
     rows = 1 << K_MAIN
     m = 20 * rows
@@ -2431,35 +2480,46 @@ def check_probes(torch, dev, bound, results):
             err, root=None, ms=ms, plain_ms=plain, **b_)
 
 
-U32_RATE = ("u32_mul_repeat", "msm_order", "stream_bucket",
-            "stream_bucket_windows", "ec_add", "ec_madd", "ec_double",
-            "ec_scalar_mul", "ec_horner", "scan_level", "ntt_base")
-
-
 def shares_at_measured_rates(results):
     """Each kernel's time against its bound at the guide's IMAD rate (the
-    `bound_ms` of the kernels line) and against the same bound at the rate
-    the card reached in this run (`bound_ms_measured`): kernel 10's for
-    every kernel made of its Montgomery product, kernel 12's u32 rate for
-    kernel 12, the ordering pass and kernels B, C, D, 8 and 9, whose
-    carry-chain product is not kernel 10's.  A chain's critical path does
-    not depend on the rate and stays in both."""
+    `bound_ms` of the kernels line) and against the same bound at kernel
+    12's u32 rate, the rate the card reached in this run
+    (`bound_ms_measured`), for every kernel.  A chain's critical path does
+    not depend on the rate and stays in both; kernel A's bound is bytes at
+    either rate.  Kernel 10/11 also gets its own SASS multipliers at each
+    kind's measured rate (IMAD.WIDE at kernel 12's wide form's,
+    `bound_ms_by_kind`)."""
     from halo2_tpu_torch.tools import card
     u32 = results["h2_u32_mul_repeat"]["imad_per_clk_sm"]
+    wide = results["h2_u32_mul_repeat"]["instances"]["IMAD.WIDE"][
+        "imad_per_clk_sm"]
     mont = results["h2_mont_repeat"]["imad_per_clk_sm"]
     log(f"[rates] measured IMAD per clock per SM (max SM clock): u32 chain "
-        f"(kernel 12) {u32:.1f}, Montgomery product (kernel 10) {mont:.1f}; "
-        f"the guide's {card.IMAD_PER_CLK_SM}, which every bound_ms uses")
+        f"(kernel 12) {u32:.1f}, which every bound_ms_measured uses; its "
+        f"IMAD.WIDE form {wide:.1f}; carry-chain Montgomery product (kernel "
+        f"10) {mont:.1f}; the guide's {card.IMAD_PER_CLK_SM}, which every "
+        f"bound_ms uses")
     for r in results.values():
-        rate = u32 if r["name"] in U32_RATE else mont
         for label, d in [("", r)] + list(r.get("instances", {}).items()):
             d["bound_ms_measured"] = max(
-                d["bytes_ms"], d["ops_ms"] * card.IMAD_PER_CLK_SM / rate,
+                d["bytes_ms"], d["ops_ms"] * card.IMAD_PER_CLK_SM / u32,
                 d.get("critical_path_ms", 0.0))
             log(f"[share] {r['name']} {label}: {d['ms']:.4f} ms; bound "
                 f"{d['bound_ms']:.4f} ms (share {d['bound_ms'] / d['ms']:.3f}); "
                 f"at the measured rate {d['bound_ms_measured']:.4f} ms (share "
                 f"{d['bound_ms_measured'] / d['ms']:.3f})")
+            if "multipliers_by_kind" in d:
+                # kernel 10/11: its own SASS at each kind's measured rate
+                guide_ms = d["ops_ms"] / (d["products"]
+                                          * d["least_imad_per_product"])
+                d["bound_ms_by_kind"] = d["products"] * guide_ms * sum(
+                    v * card.IMAD_PER_CLK_SM
+                    / (wide if k == "IMAD.WIDE" else u32)
+                    for k, v in d["multipliers_by_kind"].items())
+                log(f"[share] {r['name']} {label}: its SASS at each "
+                    f"multiplier's measured rate (IMAD.WIDE {wide:.1f}, the "
+                    f"rest {u32:.1f}) {d['bound_ms_by_kind']:.4f} ms (share "
+                    f"{d['bound_ms_by_kind'] / d['ms']:.3f})")
 
 
 if __name__ == "__main__":

@@ -31,7 +31,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("field.cu", "ec.cu", "ntt.cu", "msm.cu", "scan.cu", "alu.cu",
            "move.cu")
-HEADERS = ("arith.cuh", "mont_chain.cuh")
+HEADERS = ("arith.cuh", "mont_chain.cuh", "mont_repeat.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 PTXAS_FLAGS = ("-Xptxas", "-v")    # registers and spills, kept in <lib>.ptxas

@@ -1,6 +1,7 @@
 """The port's benchmark: fixed-base MSM throughput through `StreamMSM` (the
 engine commitments use), the NTT, the card's Montgomery-product rate on
-kernel 10 with the roofline fractions, and the end-to-end prover.
+kernel 10 (the carry-chain product the MSM and NTT kernels run) with the
+roofline fractions, and the end-to-end prover.
 
     python -m halo2_tpu_torch.bench
 
@@ -24,8 +25,9 @@ than `min_s` (0.5 s) are repeated, 4x more each time, until they are not.
 On the card, the stage refuses numbers that break the card's own limits: a
 streamed multiply moves 96 B (two 32-byte inputs, one output), so the
 streamed rate x 96 B must stay within 1.05 x 3.35 TB/s; the ALU rate within
-1.05 x the rate that kernel 10's own SASS allows at the guide's IMAD rate;
-and both roofline fractions inside (0, 1.2).
+1.05 x the rate that kernel 10's own SASS allows at the guide's IMAD rate,
+and within 1.05 x the rate at the least multiplies a schoolbook
+Montgomery product needs; and both roofline fractions inside (0, 1.2).
 """
 
 from __future__ import annotations
@@ -197,8 +199,10 @@ def stage_micro(device="cuda", k: int = None, ntt_k: int = 18,
 
     roofline = {
         "field_mul_per_s": round(mul_rate),
-        "field_mul_methodology": "ALU-bound: mul_reps dependent products per "
-            "element in registers inside one launch of kernel 10",
+        "field_mul_methodology": "ALU-bound: mul_reps dependent carry-chain "
+            "Montgomery products (fe_mul_chain, the product of the MSM and "
+            "NTT kernels) per element in registers inside one launch of "
+            "kernel 10",
         "field_mul_reps": mul_reps,
         "field_mul_stream_per_s": round(mul_stream_rate),
         "msm_windows": n_win,
@@ -225,27 +229,39 @@ def stage_micro(device="cuda", k: int = None, ntt_k: int = 18,
 
 def _card_guards(mul_rate, mul_stream_rate, msm_frac, ntt_frac) -> dict:
     """Refuse numbers the card cannot produce (the methodology broke);
-    return the ALU bound they were held to."""
+    return the ALU bounds they were held to: the rate kernel 10's own SASS
+    allows, and the rate at the least multiplies an 8-word schoolbook
+    Montgomery product needs (`card.least_multiplies`), both at the guide's
+    IMAD rate."""
     bound = card.Bounds(card.sass_multiplies(), card.max_sm_clock_mhz())
-    per_mul = bound.per_elem("k_mont_repeat", "Bn254Fr")
+    per_mul = card.mont_repeat_multiplies("Bn254Fr")
     alu_bound = bound.rate / per_mul
+    least = card.least_multiplies(BN254_FR)
+    least_bound = bound.rate / least
     stream_bytes = mul_stream_rate * BYTES_PER_STREAMED_MUL
     imad = bound.imad_per_clk_sm(mul_rate * per_mul)
     log(f"guards: streamed {stream_bytes / 1e12:.3f} TB/s against "
         f"{card.HBM_BYTES_PER_S / 1e12:.2f}; ALU {mul_rate / 1e9:.2f} G muls/s "
-        f"against {alu_bound / 1e9:.2f} ({per_mul} IMAD per product, "
+        f"against {alu_bound / 1e9:.2f} ({per_mul:g} IMAD per product, "
         f"{card.IMAD_PER_CLK_SM} per clock per SM at {bound.clock_mhz:.0f} "
-        f"MHz); measured {imad:.1f} IMAD per clock per SM")
+        f"MHz) and {least_bound / 1e9:.2f} (the least {least} per product), "
+        f"share {mul_rate / least_bound:.3f}; measured {imad:.1f} IMAD per "
+        f"clock per SM")
     assert stream_bytes <= 1.05 * card.HBM_BYTES_PER_S, (
         f"streamed mul rate implies {stream_bytes / 1e9:.0f} GB/s > the "
         "card's HBM rate")
     assert mul_rate <= 1.05 * alu_bound, (
         f"ALU rate {mul_rate:.3g} muls/s > kernel 10's IMAD bound "
         f"{alu_bound:.3g}")
+    assert mul_rate <= 1.05 * least_bound, (
+        f"ALU rate {mul_rate:.3g} muls/s > the schoolbook least-multiplies "
+        f"bound {least_bound:.3g}")
     assert 0 < msm_frac < 1.2, f"degenerate msm fraction {msm_frac:.3g}"
     assert 0 < ntt_frac < 1.2, f"degenerate ntt fraction {ntt_frac:.3g}"
     return {"field_mul_alu_bound_per_s": round(alu_bound),
+            "field_mul_least_bound_per_s": round(least_bound),
             "imad_per_product": per_mul,
+            "least_imad_per_product": least,
             "alu_imad_per_clk_sm": imad,
             "max_sm_clock_mhz": bound.clock_mhz}
 

@@ -188,6 +188,26 @@ def loop_multiplies(fn_parts) -> dict:
                key=lambda k: sum(k.values()))
 
 
+def mont_repeat_multiplies(tag: str) -> float:
+    """Kernel 10/11's multiplier instructions per product over the field
+    `tag` (its SASS name, e.g. "Bn254Fr"): its reps loop, which holds one
+    product for each of a thread's elements, over those elements."""
+    from .. import _build
+    per_thread = _build.library().h2_mont_elems_per_thread()
+    return sum(loop_multiplies(("k_mont_repeat", tag)).values()) / per_thread
+
+
+def least_multiplies(F) -> int:
+    """Multiplier instructions an 8-word schoolbook Montgomery product over
+    F needs at least, however it is scheduled: a b's 64 word products, then
+    per word of the reduction one for its quotient and one per nonzero
+    word of p (Pasta's p has three zero words).  136 for both BN254 fields.
+    A product that multiplies fewer words (Karatsuba, or one on the FP64
+    pipe) is not held to it and needs a count of its own."""
+    nonzero = sum(1 for i in range(8) if (F.p >> (32 * i)) & 0xFFFFFFFF)
+    return 64 + 8 * (1 + nonzero)
+
+
 def ptxas_report() -> dict:
     """Registers, spill stores and loads, and stack of each kernel function,
     from the `ptxas -v` log the build keeps beside the library."""

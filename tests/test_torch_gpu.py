@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from halo2_tpu_torch import api
+from halo2_tpu_torch import _build, api
 from halo2_tpu_torch.commit import (ParamsIPA, ParamsKZG, ProverSHPLONK,
                                     SingleStrategyKZG, VerifierSHPLONK)
 from halo2_tpu_torch.compat import (SerdeFormat, pk_read, pk_write,
@@ -387,19 +387,26 @@ def test_gpu_shuffle_gwc_keccak_proof_equals_cpu_proof(cuda):
 
 @pytest.mark.parametrize("F", [BN254_FR, BN254_FQ], ids=["fr", "fq"])
 def test_kernels_10_11_match_plain(F, cuda):
-    a = alu_probe.random_elems(F, 5000, 13, cuda)
-    b = alu_probe.random_elems(F, 5000, 14, cuda)
-    for reps in (0, 1, 7):
-        assert torch.equal(alu_probe.mont_repeat(F, a, b, reps),
-                           alu_probe.mont_repeat_plain(F, a, b, reps))
+    """At 5,000 elements, at a tail (2^12 K + 3, K the elements a thread
+    runs) and below one block."""
+    per_thread = _build.library().h2_mont_elems_per_thread()
+    for n in (5000, 4096 * per_thread + 3, 100):
+        a = alu_probe.random_elems(F, n, 13, cuda)
+        b = alu_probe.random_elems(F, n, 14, cuda)
+        for reps in (0, 1, 7):
+            assert torch.equal(alu_probe.mont_repeat(F, a, b, reps),
+                               alu_probe.mont_repeat_plain(F, a, b, reps))
 
 
 def test_kernel_12_matches_plain(cuda):
+    """The u32 chain and its IMAD.WIDE form."""
     a = alu_probe.random_u32((8, 3000), 15, cuda)
     b = alu_probe.random_u32((8, 3000), 16, cuda)
-    for reps in (1, 17, 64):
-        assert torch.equal(alu_probe.u32_mul_repeat(a, b, reps),
-                           alu_probe.u32_mul_repeat_plain(a, b, reps))
+    for wide in (False, True):
+        for reps in (1, 17, 64):
+            assert torch.equal(
+                alu_probe.u32_mul_repeat(a, b, reps, wide),
+                alu_probe.u32_mul_repeat_plain(a, b, reps, wide))
 
 
 def test_kernels_13_15_match_plain(cuda):

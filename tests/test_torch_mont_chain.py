@@ -1,11 +1,15 @@
-"""The carry-chain Montgomery product of kernels B, C, D, 8 and 9 and kernel
-C's carry-chain sum and difference (halo2_tpu_torch/csrc/mont_chain.cuh)
-on the CPU, and the SASS census of halo2_tpu_torch/tools/card.py.
+"""The carry-chain Montgomery product of kernels B, C, D, 8, 9 and 10/11
+and kernel C's carry-chain sum and difference (halo2_tpu_torch/csrc/
+mont_chain.cuh), kernel 10/11's per-thread body (csrc/mont_repeat.cuh) on
+the CPU, and the SASS census of halo2_tpu_torch/tools/card.py.
 
 The primitives carry a host model of the PTX carry flag, so g++ builds the
 same chains here; their words are held against python integers for the
-four moduli, with 0, 1, p - 1 and random canonical operands.  The SASS
-parser is held against a hand-written listing in cuobjdump's format.
+four moduli, with 0, 1, p - 1 and random canonical operands.  Kernel
+10/11's body runs over a grid of small blocks, built at 1, 2 and 4
+elements a thread, held against `alu_probe.mont_repeat_plain` and python
+integers on element counts that leave a tail.  The SASS parser is held
+against a hand-written listing in cuobjdump's format.
 """
 
 import os
@@ -15,8 +19,10 @@ import subprocess
 import numpy as np
 import pytest
 
+import torch
+
 from halo2_tpu_torch.fields import BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ
-from halo2_tpu_torch.tools import card
+from halo2_tpu_torch.tools import alu_probe, card
 
 CSRC = os.path.join(os.path.dirname(__file__), os.pardir, "halo2_tpu_torch",
                     "csrc")
@@ -64,6 +70,122 @@ def chain_binary(tmp_path_factory):
     subprocess.run([cxx, "-O2", "-std=c++17", "-I", CSRC, "-o", str(exe),
                     str(src)], check=True, capture_output=True, timeout=120)
     return str(exe)
+
+
+REPEAT_HARNESS = r"""
+#include <cstdint>
+#include <cstdio>
+#include <vector>
+struct Fe { uint32_t w[8]; };
+struct Mod {
+  static uint32_t P[8], INV;
+  static uint32_t p(int i) { return P[i]; }
+  static uint32_t inv() { return INV; }
+};
+uint32_t Mod::P[8], Mod::INV;
+#include "mont_repeat.cuh"
+// Jobs of (reps, n, n pairs a b) run as alu.cu launches them: blocks of
+// `threads`, a tile of K threads' elements each; prints the n results and
+// how many words past n were written.
+template <int K>
+void run(int threads, int jobs) {
+  for (int j = 0; j < jobs; j++) {
+    int reps;
+    long long n;
+    scanf("%d %lld", &reps, &n);
+    const long long tile = (long long)K * threads;
+    const long long blocks = (n + tile - 1) / tile;
+    std::vector<Fe> a(n), b(n), out(blocks * tile);
+    for (long long e = 0; e < n; e++) {
+      for (int i = 0; i < 8; i++) scanf("%x", &a[e].w[i]);
+      for (int i = 0; i < 8; i++) scanf("%x", &b[e].w[i]);
+    }
+    for (auto& o : out)
+      for (int i = 0; i < 8; i++) o.w[i] = 0xdeadbeefu;
+    for (long long blk = 0; blk < blocks; blk++)
+      for (int t = 0; t < threads; t++)
+        mont_repeat_elems<Mod, K>(
+            n, blk * tile + t, threads, reps,
+            [&](long long i, Fe& x, Fe& y) { x = a[i]; y = b[i]; },
+            [&](long long i, const Fe& x) { out[i] = x; });
+    long long past = 0;
+    for (long long e = n; e < blocks * tile; e++)
+      for (int i = 0; i < 8; i++) past += out[e].w[i] != 0xdeadbeefu;
+    for (long long e = 0; e < n; e++) {
+      for (int i = 0; i < 8; i++) printf("%x ", out[e].w[i]);
+      printf("\n");
+    }
+    printf("past %lld\n", past);
+  }
+}
+int main() {
+  for (int i = 0; i < 8; i++) scanf("%x", &Mod::P[i]);
+  scanf("%x", &Mod::INV);
+  int k, threads, jobs;
+  scanf("%d %d %d", &k, &threads, &jobs);
+  if (k == 1) run<1>(threads, jobs);
+  if (k == 2) run<2>(threads, jobs);
+  if (k == 4) run<4>(threads, jobs);
+  return 0;
+}
+"""
+THREADS = 4            # the harness's block: tails at small counts
+
+
+@pytest.fixture(scope="module")
+def repeat_binary(tmp_path_factory):
+    """The harness, with the body at K = 1, 2 and 4 elements a thread."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to build the host model")
+    d = tmp_path_factory.mktemp("mont_repeat")
+    src, exe = d / "harness.cpp", d / "harness"
+    src.write_text(REPEAT_HARNESS)
+    subprocess.run([cxx, "-O1", "-std=c++17", "-I", CSRC, "-o", str(exe),
+                    str(src)], check=True, capture_output=True, timeout=120)
+    return str(exe)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4], ids=lambda k: f"K{k}")
+@pytest.mark.parametrize("F", [BN254_FR, BN254_FQ], ids=["fr", "fq"])
+def test_mont_repeat_body_matches_plain(repeat_binary, F, k):
+    """reps 0, 1, 2 and 7 on 3 K THREADS + 3 elements (a tail: not a
+    multiple of K, the last block part full) and on 3 (below one block),
+    against reps calls of kernel A's plain product and python integers;
+    nothing written past n."""
+    exe = repeat_binary
+    p = F.p
+    inv = (-pow(p, -1, 1 << 32)) % (1 << 32)
+    r_inv = pow(1 << 256, -1, p)
+    jobs, text = [], []
+    for n in (3 * k * THREADS + 3, 3):
+        a = alu_probe.random_elems(F, n, 5 + n, "cpu")
+        b = alu_probe.random_elems(F, n, 6 + n, "cpu")
+        for reps in (0, 1, 2, 7):
+            jobs.append((a, b, reps))
+            text.append(f"{reps} {n}\n" + "\n".join(
+                f"{_words(x)} {_words(y)}"
+                for x, y in zip(_ints(a), _ints(b))))
+    out = subprocess.run([exe], input=f"{_words(p)} {inv:x}\n{k} {THREADS} "
+                         f"{len(jobs)}\n" + "\n".join(text),
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split("\n")
+    for a, b, reps in jobs:
+        n = a.shape[0]
+        rows, past, out = out[:n], out[n], out[n + 1:]
+        assert past == "past 0", (k, F.name, n, reps)
+        got = [sum(int(t, 16) << (32 * i) for i, t in enumerate(r.split()))
+               for r in rows]
+        want = alu_probe.mont_repeat_plain(F, a, b, reps)
+        assert got == _ints(want), (k, F.name, n, reps)
+        assert got == [x * pow(y * r_inv, reps, p) % p
+                       for x, y in zip(_ints(a), _ints(b))]
+
+
+def _ints(t) -> list:
+    """(n, 8) int32 words -> python integers."""
+    w = t.to(torch.int64) & 0xFFFFFFFF
+    return [sum(int(v) << (32 * i) for i, v in enumerate(r)) for r in w]
 
 
 def _words(x: int) -> str:

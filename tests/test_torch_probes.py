@@ -105,6 +105,28 @@ def test_u32_mul_repeat_matches_reference():
     assert int(got[1, 7]) & 0xFFFFFFFF == v
 
 
+def test_wide_mul_repeat_plain_matches_ints():
+    """Kernel 12's IMAD.WIDE form, chains w_j <- lo(w_j) b + w_j mod 2^64
+    from w_j = a + j, the lane the xor of every lo(w_j) and hi(w_j), which
+    has no reference counterpart: its plain version against python
+    integers, with the extreme words."""
+    a, b = _u32((8, 64), 9), _u32((8, 64), 10)
+    a[0, :4] = [0, 1, 0xFFFFFFFF, 0x80000000]
+    b[0, :4] = [0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF, 2]
+    for reps in (0, 1, 5, 33):
+        got = alu_probe.u32_mul_repeat(_t(a), _t(b), reps, wide=True)
+        want = []
+        for x, y in zip(a.ravel().tolist(), b.ravel().tolist()):
+            lane = 0
+            for j in range(alu_probe.WIDE_CHAINS):
+                w = x + j
+                for _ in range(reps):
+                    w = ((w & 0xFFFFFFFF) * y + w) % (1 << 64)
+                lane ^= (w & 0xFFFFFFFF) ^ (w >> 32)
+            want.append(lane)
+        assert (got.view(-1).to(torch.int64) & 0xFFFFFFFF).tolist() == want
+
+
 def test_gather_rows_matches_reference():
     """Row 13: the table equals the reference's `mk_tbl` and the gather the
     reference's own check of its kernel (numpy indexing of the table)."""

@@ -6,10 +6,13 @@ Builds the port's CUDA kernels from halo2_tpu_torch/csrc and holds each of
 them, and each of their BN254 and Pasta instances, against its plain
 PyTorch version on the card word for word.  Proves on the CPU (plain
 versions) and on the GPU (kernels) and requires equal proof bytes: KZG
-plonk_api at k=8, IPA/Vesta plonk_api at k=6, and the shuffle and
-two-phase circuits at k=8 on KZG / GWC / Keccak256.  Then it drives
-fourteen main paths, each with the launch counts set to 0 just before it
-and read just after:
+plonk_api at k=8, IPA plonk_api at k=6 on Vesta and on Pallas, and the
+shuffle and two-phase circuits at k=8 on KZG / GWC / Keccak256; proves
+lookup_heavy at k=8 on the card plain and under HALO2_TPU_SANITY=1 and
+HALO2_TPU_HOST_LOOKUP=1 (every sanity check passing, the lookup's
+permuted columns from the host permute) and requires equal bytes.  Then
+it drives fifteen main paths, each with the launch counts set to 0 just
+before it and read just after:
 
   k=18 plonk_api, KZG / SHPLONK  (kernels A, B, C, D, the ordering pass)
   k=18 plonk_api under the sorted fixed-base MSM (GpuMsmEngine(style=
@@ -37,6 +40,14 @@ and read just after:
        proof byte for byte, a steady prove, verify and a tampered proof
        rejected  (A, B's add and doubling, C, D, the ordering pass)
   k=20 lookup_heavy, KZG / SHPLONK, on the unbaked table (kernel 8)
+  k=22 lookup_heavy, KZG / SHPLONK (BASELINE config 5): one steady prove
+       and a profiled one; too large for a CPU to check its proof, so
+       beside it one MSM of its size through StreamMSM (unbaked, kernel 8)
+       must equal the same MSM through CachedMSM (one window a chunk), the
+       ordering pass must equal its plain version on the path's keys, and
+       the extended-domain transform (2^24) must round-trip a random
+       column and agree at two coset points with a python-int Horner
+       evaluation of its coefficients
   k=14 plonk_api, IPA / Vesta, opening MSMs on the segmented scan (kernel 9);
        its ParamsIPA.new fills an empty params cache, and a second one
        reads it back (both timed, the bytes equal)
@@ -48,13 +59,14 @@ and read just after:
   bench micro k=18: the port bench's micro stage (MSM, NTT, kernel 10)
   probes: the ALU, gather and transpose probes (kernels 10-15)
 
-the five proving paths (plonk_api, shuffle and two-phase at k=18,
-lookup_heavy, IPA) each with params (the shuffle and two-phase paths reuse
-the k=18 ones), keygen, a first and steady proves with their step tables,
-verify, and a tampered proof that must be rejected (the shuffle path also
-a non-permutation witness, the two-phase path a phase-2 cell off by
-one), then one profiled prove (device busy and idle
-share; not on lookup_heavy).  The cost model's proof sizes are printed
+the six proving paths (plonk_api, shuffle and two-phase at k=18,
+lookup_heavy at k=20 and k=22, IPA) each with params (the shuffle and
+two-phase paths reuse the k=18 ones), keygen, a first and steady proves
+with their step tables (lookup_heavy's first prove also prints the
+reference's HALO2_TPU_STEP_TIMINGS lines), verify, and a tampered proof that must be
+rejected (the shuffle path also a non-permutation witness, the two-phase
+path a phase-2 cell off by one), then one profiled prove (device busy and
+idle share).  The cost model's proof sizes are printed
 beside the real proofs' of the k=18 KZG and k=14 IPA paths.  The ordering pass and
 kernel D are held against their plain versions at the k=18 table, the
 ordering pass and kernel 8 at the k=20 one, for random, 16-bit, zero,
@@ -133,10 +145,11 @@ K_MAIN = 18
 K_CMP = 8
 N_STEADY = 3          # steady proves at K_MAIN, for their spread
 K_LOOKUP = 20
+K_HUGE = 22           # BASELINE config 5: lookup_heavy, one steady prove
 K_IPA = 14
 K_IPA_CMP = 6
-N_STEADY_BIG = 2      # steady proves at K_LOOKUP, K_IPA and the K_MAIN
-                      # shuffle and phase paths
+N_STEADY_BIG = 2      # steady proves at K_IPA and the K_MAIN shuffle and
+                      # phase paths (lookup_heavy at K_LOOKUP and K_HUGE: 1)
 SHARDS = 4            # shards of the mesh paths, all on cuda:0
 K_MULTIHOST = 20      # the multi-process NTT, two processes x
 MULTIHOST_SHARDS = 2  # MULTIHOST_SHARDS shards of cuda:0 each
@@ -216,11 +229,14 @@ def main() -> int:
         results.update(check_kernel_9(torch, dev))
     with phase(f"KZG k={K_CMP} CPU == GPU", walls):
         compare_kzg_cpu_gpu(torch, dev)
-    with phase(f"IPA k={K_IPA_CMP} CPU == GPU", walls):
+    with phase(f"IPA k={K_IPA_CMP} CPU == GPU, Vesta and Pallas", walls):
         compare_ipa_cpu_gpu(torch, dev)
     with phase(f"shuffle and phase k={K_CMP}, GWC + Keccak256, CPU == GPU",
                walls):
         compare_config_cpu_gpu(torch, dev)
+    with phase(f"lookup_heavy k={K_CMP} under HALO2_TPU_SANITY and "
+               f"HALO2_TPU_HOST_LOOKUP == plain", walls):
+        compare_sanity(torch, dev)
 
     counts = {}
     with phase(f"KZG plonk_api k={K_MAIN}", walls):
@@ -253,12 +269,21 @@ def main() -> int:
         check_multihost(torch, dev)
     del path
     with phase(f"KZG lookup_heavy k={K_LOOKUP}", walls):
-        path = run_lookup_heavy(torch, dev, counts)
+        path = run_lookup_heavy(torch, dev, counts, K_LOOKUP)
     with phase(f"ordering pass and kernel 8 at k={K_LOOKUP}, unbaked == "
                f"baked", walls):
         check_stream_main(torch, *path, bound, results)
         check_unbaked_vs_baked(torch, path[0])
     with phase(f"sorted MSM at k={K_LOOKUP}, unbaked == StreamMSM", walls):
+        check_sorted_msm(torch, path[0], results)
+    del path
+    with phase(f"KZG lookup_heavy k={K_HUGE}", walls):
+        path = run_lookup_heavy(torch, dev, counts, K_HUGE)
+    with phase(f"ordering pass at k={K_HUGE}", walls):
+        check_order_main(torch, path[0], bound, results)
+    with phase(f"extended domain at k={K_HUGE}", walls):
+        check_extended_domain(torch, path[1])
+    with phase(f"sorted MSM at k={K_HUGE}, unbaked == StreamMSM", walls):
         check_sorted_msm(torch, path[0], results)
     del path
     with phase(f"IPA plonk_api k={K_IPA}", walls):
@@ -977,29 +1002,89 @@ def own_params_cache():
 
 def compare_ipa_cpu_gpu(torch, dev):
     """IPA params, keygen, prove and verify on the CPU's plain versions
-    and on the card's kernels, each side with params it made itself: the
-    proof bytes must be equal."""
+    and on the card's kernels, each side with params it made itself, on
+    Vesta (scalars in Pasta Fp) and on Pallas (Pasta Fq): the proof bytes
+    must be equal."""
     from halo2_tpu_torch.api import create_proof, keygen, verify
     from halo2_tpu_torch.commit import ParamsIPA
     from halo2_tpu_torch.compat import plonk_api
-    from halo2_tpu_torch.curves import VESTA
-    from halo2_tpu_torch.fields import PASTA_FP as F
-    circuit, inst = plonk_api.plonk_api_instance(F)
-    proofs = {}
-    for where in ("cpu", dev):
+    from halo2_tpu_torch.curves import PALLAS, VESTA
+    from halo2_tpu_torch.fields import PASTA_FP, PASTA_FQ
+    for G, F in ((VESTA, PASTA_FP), (PALLAS, PASTA_FQ)):
+        tag = f"IPA k={K_IPA_CMP} {G.name}"
+        circuit, inst = plonk_api.plonk_api_instance(F)
+        proofs = {}
+        for where in ("cpu", dev):
+            t0 = time.time()
+            with own_params_cache():
+                params = ParamsIPA.new(G, K_IPA_CMP, device=where)
+            pk = keygen(F, params, K_IPA_CMP, circuit)
+            proof = create_proof(params, pk, [circuit], [inst],
+                                 random.Random(1))
+            if not verify(params, pk.vk, proof, [inst]):
+                raise AssertionError(f"{tag} proof on {where} failed")
+            proofs[str(where)] = proof
+            log(f"[{tag}] {where}: params+keygen+prove+verify "
+                f"{time.time() - t0:.2f} s, {len(proof)} proof bytes")
+        if proofs["cpu"] != proofs[str(dev)]:
+            raise AssertionError(f"{tag}: CPU-plain and GPU-kernel proofs "
+                                 f"differ")
+        log(f"[{tag}] CPU-plain and GPU-kernel proof bytes are equal")
+
+
+@contextlib.contextmanager
+def switches(env: dict):
+    """The environment variables of `env` set for the block, each put
+    back as it was afterwards."""
+    old = {name: os.environ.get(name) for name in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+def compare_sanity(torch, dev):
+    """lookup_heavy at K_CMP on the card, KZG / SHPLONK: the proof under
+    HALO2_TPU_SANITY=1 and HALO2_TPU_HOST_LOOKUP=1 (the reference's
+    sanity tier: unblinded rows, the permuted-pair invariant, the device
+    permute against the host one, the lookup grand product; (A', S') from
+    the host permute) must equal the plain proof byte for byte."""
+    from halo2_tpu_torch.api import create_proof, keygen, verify
+    from halo2_tpu_torch.commit import (ParamsKZG, ProverSHPLONK,
+                                        SingleStrategyKZG, VerifierSHPLONK)
+    from halo2_tpu_torch.compat.lookup_heavy import lookup_heavy_instance
+    from halo2_tpu_torch.fields import BN254_FR as F
+    tag = f"lookup_heavy k={K_CMP} sanity"
+    circuit, inst, kg_circuit = lookup_heavy_instance(F, K_CMP)
+    params = ParamsKZG.new(K_CMP, device=dev)
+    pk = keygen(F, params, K_CMP, kg_circuit)
+    proofs = []
+    for env in ({}, {"HALO2_TPU_SANITY": "1", "HALO2_TPU_HOST_LOOKUP": "1"}):
         t0 = time.time()
-        with own_params_cache():
-            params = ParamsIPA.new(VESTA, K_IPA_CMP, device=where)
-        pk = keygen(F, params, K_IPA_CMP, circuit)
-        proof = create_proof(params, pk, [circuit], [inst], random.Random(1))
-        if not verify(params, pk.vk, proof, [inst]):
-            raise AssertionError(f"IPA k={K_IPA_CMP} proof on {where} failed")
-        proofs[str(where)] = proof
-        log(f"[IPA k={K_IPA_CMP}] {where}: params+keygen+prove+verify "
-            f"{time.time() - t0:.2f} s, {len(proof)} proof bytes")
-    if proofs["cpu"] != proofs[str(dev)]:
-        raise AssertionError("IPA CPU-plain and GPU-kernel proofs differ")
-    log(f"[IPA k={K_IPA_CMP}] CPU-plain and GPU-kernel proof bytes are equal")
+        with switches(env):
+            proofs.append(create_proof(params, pk, [circuit], [inst],
+                                       random.Random(1),
+                                       multiopen_prover_cls=ProverSHPLONK))
+        torch.cuda.synchronize()
+        log(f"[{tag}] prove with {env or 'no switch'}: "
+            f"{time.time() - t0:.2f} s, {len(proofs[-1])} proof bytes")
+    if os.environ.get("HALO2_TPU_SANITY") or \
+            os.environ.get("HALO2_TPU_HOST_LOOKUP"):
+        raise AssertionError(f"{tag}: the switches outlived their block")
+    if proofs[0] != proofs[1]:
+        raise AssertionError(f"{tag}: the proof under the switches differs")
+    if not verify(params, pk.vk, proofs[1], [inst],
+                  multiopen_verifier_cls=VerifierSHPLONK,
+                  strategy_cls=SingleStrategyKZG):
+        raise AssertionError(f"{tag}: the proof does not verify")
+    log(f"[{tag}] every sanity check passed; the proof under "
+        f"HALO2_TPU_SANITY=1 and HALO2_TPU_HOST_LOOKUP=1 equals the plain "
+        f"one and verifies")
 
 
 def config_instance(name: str, k: int):
@@ -1043,18 +1128,26 @@ def compare_config_cpu_gpu(torch, dev):
 # ----------------------------------------------------------------------
 
 def prove_verify(torch, tag, cfg, params, pk, circuit, inst, n_steady,
-                 bad_circuit=None):
+                 bad_circuit=None, step_lines=False):
     """Through ProofConfig `cfg` on `params`: a first and n_steady steady
     proves with their step tables, verify, a tampered proof that must be
     rejected and, where given, a proof of a bad witness that must be
-    rejected too.  Returns the first proof (random.Random(1))."""
+    rejected too.  With `step_lines` the first prove also prints the
+    reference's step lines (HALO2_TPU_STEP_TIMINGS, whose syncs its wall
+    includes); the steady proves run without them.  Returns the first
+    proof (random.Random(1))."""
     steady = []
     for seed, run in enumerate(["first"] + ["steady"] * n_steady, start=1):
         timings = {}
+        env = ({"HALO2_TPU_STEP_TIMINGS": "1"}
+               if step_lines and run == "first" else {})
         t0 = time.time()
-        proof = cfg.prove(pk, [circuit], [inst], random.Random(seed),
-                          params=params, timings=timings)
+        with switches(env):
+            proof = cfg.prove(pk, [circuit], [inst], random.Random(seed),
+                              params=params, timings=timings)
         torch.cuda.synchronize()
+        if env:
+            run = "first, with HALO2_TPU_STEP_TIMINGS"
         wall = time.time() - t0
         if run == "steady":
             steady.append(wall)
@@ -1152,35 +1245,42 @@ def run_kzg_plonk_api(torch, dev, counts):
     return (params, pk, circuit, inst), proof
 
 
-def run_lookup_heavy(torch, dev, counts):
+def run_lookup_heavy(torch, dev, counts, k: int):
+    """lookup_heavy at 2^k: params, keygen, the first prove (with the
+    reference's step lines: T3-4's encode / msms / normalize+write / set
+    split, then T9-T11), one steady prove, verify and a tampered proof in
+    the path's count window; then a profiled steady prove."""
     from halo2_tpu_torch.api import keygen
     from halo2_tpu_torch.commit import ParamsKZG
     from halo2_tpu_torch.compat.lookup_heavy import lookup_heavy_instance
     from halo2_tpu_torch.fields import BN254_FR as F
-    tag = f"KZG lookup_heavy k={K_LOOKUP}"
+    tag = f"KZG lookup_heavy k={k}"
     t0 = time.time()
-    circuit, inst, kg_circuit = lookup_heavy_instance(F, K_LOOKUP)
+    circuit, inst, kg_circuit = lookup_heavy_instance(F, k)
     log(f"[{tag}] witness generation {time.time() - t0:.2f} s")
+    cfg = _config(dev, k)
 
     def body():
         t0 = time.time()
-        params = ParamsKZG.new(K_LOOKUP, device=dev)
+        params = ParamsKZG.new(k, device=dev)
         torch.cuda.synchronize()
         t_params = time.time() - t0
         t0 = time.time()
-        pk = keygen(F, params, K_LOOKUP, kg_circuit)
+        pk = keygen(F, params, k, kg_circuit)
         torch.cuda.synchronize()
         log(f"[{tag}] ParamsKZG.new {t_params:.2f} s, keygen "
             f"{time.time() - t0:.2f} s; "
-            f"{len(pk.vk.cs.cs.lookups)} lookups")
-        prove_verify(torch, tag, _config(dev, K_LOOKUP), params, pk,
-                     circuit, inst, N_STEADY_BIG)
+            f"{len(pk.vk.cs.cs.lookups)} lookups, extended domain "
+            f"2^{pk.vk.domain.extended_k}")
+        prove_verify(torch, tag, cfg, params, pk, circuit, inst, 1,
+                     step_lines=True)
         return params, pk
 
     params, pk = run_path(torch, tag, counts, (
         "h2_field_binop", "h2_ec_add", "h2_ec_madd", "h2_ec_double",
         "h2_ntt_base", "h2_msm_order", "h2_stream_bucket_windows",
         "h2_ec_horner"), body)
+    profile_prove(torch, tag, cfg, params, pk, circuit, inst)
     return params, pk, circuit, inst
 
 
@@ -1371,10 +1471,10 @@ def run_mesh_path(torch, dev, params, pk, circuit, inst, first_proof,
             f"byte; verify True; tampered proof rejected")
         return mpk
 
-    def prove(mpk, circuits, instances, rng, params):
+    def prove(mpk, circuits, instances, rng, params, timings=None):
         return api.create_proof(params, mpk, circuits, instances, rng,
                                 multiopen_prover_cls=ProverSHPLONK,
-                                engine=engine)
+                                engine=engine, timings=timings)
 
     saved = params.engine
     try:
@@ -1690,18 +1790,22 @@ def log_cost_model(kzg_len: int, ipa_len: int):
 
 
 def profile_prove(torch, tag, cfg, params, pk, circuit, inst):
-    """One more steady prove under torch.profiler: device busy time (union
-    of kernel intervals) against wall time, the number of device kernels,
-    and the kernels that take the time."""
+    """One more steady prove under torch.profiler: its step table, device
+    busy time (union of kernel intervals) against wall time, the number of
+    device kernels, and the kernels that take the time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    timings = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        cfg.prove(pk, [circuit], [inst], random.Random(3), params=params)
+        cfg.prove(pk, [circuit], [inst], random.Random(3), params=params,
+                  timings=timings)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
+    log(f"[{tag}] prove (steady, profiled) {wall_ms / 1e3:.3f} s; steps: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -1888,6 +1992,73 @@ def check_stream_main(torch, params, pk, circuit, inst, bound, results):
         o.setdefault("instances", {})[f"kernel 8's keys, {tag}"] = at
     else:
         o.update(at)
+
+
+def check_order_main(torch, params, bound, results):
+    """The ordering pass on the keys of one MSM of the path's size (random
+    scalars, the unbaked table's per-window keys) against its plain
+    version, timed beside it, its bound (the keys read, the ordered list
+    written) and a stable torch.sort of the same keys."""
+    from halo2_tpu_torch.msm import stream_msm as sm
+    from halo2_tpu_torch.tools import card
+    G = params.curve
+    tag = f"k={params.k}"
+    s = stream_scalars(torch, G.Fr, params.n, 21, params.device, "random")
+    keys = sm.stream_keys(G, s)
+    _, pieces, _ = stream_split(G, keys, True)
+    order, info = sm.msm_order(keys, True, pieces)
+    err, plain_ms = check_order(torch, keys, True, pieces, order, info, tag)
+    ms = card.cuda_ms(lambda: sm.msm_order(keys, True, pieces), 5)
+    total = int(info[0])
+    b_o = bound(4 * keys.numel() + 4 * total, 0)
+    key_ids = keys >> 1
+    b_o["library_ms"] = card.cuda_ms(
+        lambda: torch.sort(key_ids.reshape(-1), stable=True), 3)
+    log(f"[ordering pass] {tag} random ({total} nonzero of {keys.numel()} "
+        f"keys, {pieces} pieces): equal to plain; {ms:.3f} ms (plain "
+        f"{plain_ms:.1f} ms, torch.sort stable {b_o['library_ms']:.3f} ms, "
+        f"bound {b_o['bound_ms']:.4f} ms)")
+    o = results["h2_msm_order"]
+    o["max_abs_err"] = max(o["max_abs_err"], err)
+    o.setdefault("instances", {})[f"kernel 8's keys, {tag}"] = dict(
+        ms=ms, plain_ms=plain_ms, keys=keys.numel(), nonzero=total, **b_o)
+
+
+def check_extended_domain(torch, pk):
+    """The extended-domain transform at the path's extended_k: a random
+    column of coefficients to the coset's evaluations and back is the
+    identity (the rows past n zero), and two of the evaluations equal a
+    python-int Horner evaluation of the coefficients at zeta w_ext^i
+    (about 3 s each on the host at 2^22 coefficients)."""
+    domain = pk.vk.domain
+    F = domain.F
+    p, n = F.p, domain.n
+    dev = pk.fixed_values.device
+    coeffs = random_elems(torch, F, n, 31, dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ext = domain.coeff_to_extended(coeffs)
+    back = domain.extended_to_coeff(ext)
+    torch.cuda.synchronize()
+    t_ntt = time.time() - t0
+    if not torch.equal(back[:n], coeffs) or bool(back[n:].any()):
+        raise AssertionError(f"extended domain 2^{domain.extended_k}: the "
+                             f"round trip is not the identity")
+    t0 = time.time()
+    c_ints = F.decode_ints(coeffs)
+    rows = (domain.extended_n // 3 + 7, domain.extended_n - 1)
+    for i in rows:
+        x = domain.g_coset * pow(domain.extended_omega, i, p) % p
+        acc = 0
+        for c in reversed(c_ints):
+            acc = (acc * x + c) % p
+        if F.decode_int(ext[i]) != acc:
+            raise AssertionError(f"extended domain 2^{domain.extended_k}: "
+                                 f"row {i} differs from Horner")
+    log(f"[extended domain] 2^{domain.k} -> 2^{domain.extended_k}: coeff -> "
+        f"extended -> coeff round trip the identity ({t_ntt:.3f} s); rows "
+        f"{', '.join(map(str, rows))} equal to python-int Horner at zeta "
+        f"w_ext^i ({time.time() - t0:.2f} s on the host)")
 
 
 def check_unbaked_vs_baked(torch, params):

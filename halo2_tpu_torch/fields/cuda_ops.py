@@ -93,12 +93,13 @@ def words(vals, shape) -> torch.Tensor:
 
 def _norm(t: torch.Tensor) -> torch.Tensor:
     """Carry-propagate limbs of any sign and size so that every limb but the
-    top lies in [0, 2^16); the top limb keeps the rest (value unchanged)."""
+    top lies in [0, 2^16); the top limb keeps the rest (value unchanged).
+    Works in place: `t` is a temporary that the caller no longer reads."""
     while True:
         c = t[..., :-1] >> 16
         if not bool(c.any()):
             return t
-        t = torch.cat([t[..., :-1] & MASK, t[..., -1:]], dim=-1)
+        t[..., :-1] &= MASK
         t[..., 1:] += c
 
 

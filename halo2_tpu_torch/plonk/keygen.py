@@ -5,6 +5,8 @@ tensors; commitments are normalized to host affine ints."""
 from __future__ import annotations
 
 import hashlib
+import os
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -199,6 +201,19 @@ def keygen(F: Field, params, compiled: CompiledCircuit, k: int,
     curve = params.curve
     dev = params.device
     cs = compiled.cs
+    # HALO2_TPU_DEBUG_KEYGEN=1: the reference's five step lines
+    # (keygen.py:232-309), each after the device's queue drained
+    dbg = os.environ.get("HALO2_TPU_DEBUG_KEYGEN") == "1"
+    t_last = [time.time()]
+
+    def kt(name):
+        if dbg:
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.time()
+            print(f"[keygen] {name}: {now - t_last[0]:.1f}s", flush=True)
+            t_last[0] = now
+
     cs_back = ConstraintSystemBack(cs, F.p)
     n = 1 << k
     domain = EvaluationDomain(F, max(cs_back.degree(), 2), k, dev)
@@ -217,10 +232,17 @@ def keygen(F: Field, params, compiled: CompiledCircuit, k: int,
     else:
         fixed_values = fixed_polys = F.zeros((0, n), dev)
         fixed_cosets = F.zeros((0, domain.extended_n), dev)
+    kt("fixed encode+ffts")
+    # fixed and sigma commitments share one batched normalization
+    pre = PreMSM(curve)
+    for col in fixed_values:
+        pre.append_term(1, params.commit_lagrange(col, Blind(1)))
+    kt("fixed commits")
 
     assembly = PermutationAssembly(n, cs.permutation.columns)
     for (lc, lr), (rc, rr) in compiled.preprocessing.copies:
         assembly.copy(lc, lr, rc, rr)
+    kt("perm cycle merge")
     m = len(cs.permutation.columns)
     if m:
         sigmas = F.encode_ints_cols(assembly.sigma_values(F, domain), dev)
@@ -229,12 +251,11 @@ def keygen(F: Field, params, compiled: CompiledCircuit, k: int,
     else:
         sigmas = sigma_polys = F.zeros((0, n), dev)
         sigma_cosets = F.zeros((0, domain.extended_n), dev)
-    # fixed and sigma commitments share one batched normalization
-    pre = PreMSM(curve)
-    for col in list(fixed_values) + list(sigmas):
+    for col in sigmas:
         pre.append_term(1, params.commit_lagrange(col, Blind(1)))
     commitments = pre.normalize()
     fixed_commitments, perm_commitments = commitments[:nf], commitments[nf:]
+    kt("sigma values+ffts+commits")
 
     vk = VerifyingKey(F, curve, domain, cs_back, fixed_commitments,
                       PermutationVK(perm_commitments), k)
@@ -251,6 +272,7 @@ def keygen(F: Field, params, compiled: CompiledCircuit, k: int,
         domain.lagrange_to_coeff(F.encode_ints_cols(cols, dev))).unbind(0)
     one = F.ones((domain.extended_n,), dev)
     l_active_row = F.sub(F.sub(one, l_last), l_blind)
+    kt("vk hash + lagrange basis")
 
     return ProvingKey(vk, l0, l_last, l_active_row, fixed_values,
                       fixed_polys, fixed_cosets,

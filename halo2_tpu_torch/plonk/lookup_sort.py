@@ -1,5 +1,8 @@
-"""Sort-based `permute_expression_pair` (port of
-the JAX reference's plonk/lookup_sort.py; lookup/prover.rs:410-494).
+"""`permute_expression_pair` (lookup/prover.rs:410-494): the sort-based
+device form (port of the JAX reference's plonk/lookup_sort.py) and the
+host form on python ints (the reference's prover.py:828-851), which the
+prover takes under HALO2_TPU_HOST_LOOKUP=1 and checks the device form
+against under HALO2_TPU_SANITY=1.
 
   A' = sorted(input)
   S'[i] = A'[i]                  where A'[i] is a first occurrence
@@ -20,6 +23,34 @@ from __future__ import annotations
 import torch
 
 from ..fields.field import NWORDS, Field
+
+
+def permute_expression_pair(in_ints, tab_ints, name: str):
+    """(A', S') as lists of canonical ints over the usable rows of the
+    compressed input and table: A' sorted, each first occurrence matched
+    with one table copy, the table's leftover multiset filled ascending
+    into the repeated rows from the last one up.  Raises ValueError when
+    an input value is missing from the table."""
+    perm_in = sorted(in_ints)
+    leftover = {}
+    for v in tab_ints:
+        leftover[v] = leftover.get(v, 0) + 1
+    perm_tab = [0] * len(perm_in)
+    repeated_rows = []
+    for row, v in enumerate(perm_in):
+        if row == 0 or v != perm_in[row - 1]:
+            perm_tab[row] = v
+            if leftover.get(v, 0) > 0:
+                leftover[v] -= 1
+            else:
+                raise ValueError(f"lookup '{name}': input {v} not in table")
+        else:
+            repeated_rows.append(row)
+    for v in sorted(leftover):
+        for _ in range(leftover[v]):
+            perm_tab[repeated_rows.pop()] = v
+    assert not repeated_rows
+    return perm_in, perm_tab
 
 
 def _lex_order(keys):

@@ -13,6 +13,7 @@ byte-identical to the reference's under the same seed.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List
 
@@ -28,7 +29,25 @@ from ..poly.arith import eval_polys_at_points, prefix_product
 from ..poly.poly import Poly
 from .evaluation import evaluate_expression
 from .keygen import ProvingKey
-from .lookup_sort import permute_expression_pair_device
+from .lookup_sort import (permute_expression_pair,
+                          permute_expression_pair_device)
+
+
+def _sanity_on() -> bool:
+    """HALO2_TPU_SANITY=1: the reference's `sanity-checks` tier of
+    in-prover invariants (unblinded advice rows zero, prover.rs:418-421;
+    the permuted-pair invariant, lookup/prover.rs:475-488; the lookup
+    grand product, lookup/prover.rs:269-305).  They decode to python ints
+    and draw nothing from the RNG, so the proof bytes do not change."""
+    return os.environ.get("HALO2_TPU_SANITY") == "1"
+
+
+def _sanity(ok: bool, msg: str = ""):
+    """One sanity-tier check: AssertionError with the reference's message
+    (raised, not asserted, so that it holds under `python -O` too)."""
+    if not ok:
+        raise AssertionError(msg)
+
 
 def _random_poly(F: Field, n: int, rng, device):
     """n uniform field elements from 384 rng-derived bits each: one 64-bit
@@ -51,6 +70,16 @@ def _sync(device):
     """Wait for the device work queued so far (step timings)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _step_line(name: str, t0: float, device=None) -> float:
+    """One HALO2_TPU_STEP_TIMINGS line, in the reference's format: the wall
+    since t0, after the device's queue drained where a device is given
+    (the reference's block_until_ready).  Returns the new t0."""
+    if device is not None:
+        _sync(device)
+    print(f"    {name}: {time.time() - t0:.2f}s", flush=True)
+    return time.time()
 
 
 class Evaluator:
@@ -288,19 +317,35 @@ class Prover:
                         values[r] = rng.randrange(F.p)
                     blind = Blind(rng.randrange(F.p))
                 else:
+                    if _sanity_on():
+                        _sanity(all(v == 0 for v in values[unusable_start:]),
+                                f"unblinded column {ci} nonzero blinding "
+                                f"rows")
                     blind = Blind(1)
                 col_vals.append(values)
                 blinds.append(blind)
+            # HALO2_TPU_STEP_TIMINGS=1: the reference's encode / msms /
+            # normalize+write / set split of this step (prover.py:429-460)
+            dbg = os.environ.get("HALO2_TPU_STEP_TIMINGS") == "1"
+            t0 = time.time()
             cols = F.encode_ints_cols(col_vals, self.device)
+            if dbg:
+                t0 = _step_line("[commit_phase] encode", t0, self.device)
             pre = PreMSM(self.params.curve)
             for j in range(len(column_indices)):
                 pre.append_term(1, self.params.commit_lagrange(
                     Poly.lagrange(cols[j]), blinds[j]))
+            if dbg:
+                t0 = _step_line("[commit_phase] msms", t0, self.device)
             # [TRANSCRIPT-3]
             for pt in pre.normalize():
                 self.transcript.write_point(pt)
+            if dbg:
+                t0 = _step_line("[commit_phase] normalize+write", t0)
             idx = torch.tensor(column_indices, device=self.device)
             self.advice_values[circ][idx] = cols
+            if dbg:
+                _step_line("[commit_phase] set", t0, self.device)
             for j, ci in enumerate(column_indices):
                 self.advice_blinds[circ][ci] = blinds[j]
         # [TRANSCRIPT-4]
@@ -351,14 +396,24 @@ class Prover:
         # products; [11] shuffle products
         beta = t.squeeze_challenge()
         gamma = t.squeeze_challenge()
+        # HALO2_TPU_STEP_TIMINGS=1: the reference's per-argument lines
+        # (prover.py:543-585)
+        dbg = os.environ.get("HALO2_TPU_STEP_TIMINGS") == "1"
+        t9 = time.time()
         permutations_z = [self._permutation_commit(c, beta, gamma)
                           for c in range(n_circ)]
+        if dbg:
+            t9 = _step_line("[T9] permutation_commit", t9)
         lookups_committed = [[self._lookup_commit_product(pl, beta, gamma)
                               for pl in permuted[c]] for c in range(n_circ)]
+        if dbg:
+            t9 = _step_line("[T10] lookup_products", t9)
         permuted = None     # the Lagrange intermediates are dead from here
         shuffles_committed = [[self._shuffle_commit_product(
             c, sh, theta, gamma, challenges_enc) for sh in cs.shuffles]
             for c in range(n_circ)]
+        if dbg:
+            _step_line("[T11] shuffle_products", t9)
         self._tick("grand_products [T9-11]")
 
         # [TRANSCRIPT-12] vanishing random poly
@@ -411,6 +466,9 @@ class Prover:
                 h_poly = Poly.coeff(F.add(F.mul(h_poly.values, xn_enc),
                                           piece.values))
                 h_blind = (h_blind * xn + blind.value) % p
+        if os.environ.get("HALO2_TPU_DEBUG"):
+            h_x = eval_polys_at_points(F, [(h_poly, x)])[0]
+            print(f"[dbg prover] x={x:#x} h_poly(x)={h_x:#x}")
 
         # [TRANSCRIPT-17..22] opening evaluations, in transcript order
         x_next = domain.rotate_omega_int(x, Rotation(1))
@@ -538,12 +596,34 @@ class Prover:
                                  challenges_enc)
         comp_tab = self._compress(circ, lk_arg.table_expressions, theta_enc,
                                   challenges_enc)
-        a_dev, s_dev = permute_expression_pair_device(F, comp_in, comp_tab,
-                                                      usable)
+        # HALO2_TPU_HOST_LOOKUP=1 takes (A', S') from the host permute;
+        # the sanity tier checks the device permute against it
+        use_host = os.environ.get("HALO2_TPU_HOST_LOOKUP") == "1"
+        sanity = _sanity_on()
+        if not use_host:
+            a_dev, s_dev = permute_expression_pair_device(
+                F, comp_in, comp_tab, usable)
+        if use_host or sanity:
+            perm_in, perm_tab = permute_expression_pair(
+                F.decode_ints(comp_in[:usable]),
+                F.decode_ints(comp_tab[:usable]), lk_arg.name)
+        if sanity:
+            for i in range(usable):
+                _sanity(perm_in[i] == perm_tab[i] or (
+                    i > 0 and perm_in[i] == perm_in[i - 1]),
+                    f"permuted-pair invariant broken at row {i}")
+            if not use_host:
+                _sanity(F.decode_ints(a_dev) == perm_in,
+                        "device permuted input != host")
+                _sanity(F.decode_ints(s_dev) == perm_tab,
+                        "device permuted table != host")
         blind_in = F.encode_ints([rng.randrange(p) for _ in range(bf + 1)],
                                  dev)
         blind_tab = F.encode_ints([rng.randrange(p) for _ in range(bf + 1)],
                                   dev)
+        if use_host:
+            a_dev = F.encode_ints(perm_in, dev)
+            s_dev = F.encode_ints(perm_tab, dev)
         permuted_input = Poly.lagrange(torch.cat([a_dev, blind_in]))
         permuted_table = Poly.lagrange(torch.cat([s_dev, blind_tab]))
         in_blind = Blind(rng.randrange(p))
@@ -565,17 +645,20 @@ class Prover:
             "permuted_table_blind": tab_blind,
         }
 
-    def _commit_product(self, ratios):
+    def _commit_product(self, ratios, check=None):
         """The grand product z of a lookup or a shuffle: 1, then the
         running product of `ratios` over the usable rows, then bf random
         draws and one blind, committed in Lagrange form (lookup/prover.rs:
-        254-324, shuffle/prover.rs:160-211).  Returns (coeff z, blind)."""
+        254-324, shuffle/prover.rs:160-211).  `check`, where given, sees
+        the n - bf rows of z before the draws.  Returns (coeff z, blind)."""
         F = self.F
         p = F.p
         dev = self.device
         n = self.pk.vk.domain.n
         bf = self.pk.vk.cs.blinding_factors()
         z = torch.cat([F.ones((1,), dev), prefix_product(F, ratios)])
+        if check is not None:
+            check(z[: n - bf])
         z = Poly.lagrange(torch.cat([z[: n - bf], F.encode_ints(
             [self.rng.randrange(p) for _ in range(bf)], dev)]))
         blind = Blind(self.rng.randrange(p))
@@ -592,7 +675,28 @@ class Prover:
                       F.add(pl["permuted_table"], g_enc))
         numer = F.mul(F.add(pl["compressed_input"], b_enc),
                       F.add(pl["compressed_table"], g_enc))
-        z, blind = self._commit_product(F.mul(numer, F.batch_inv(denom)))
+
+        def check(z):
+            """lookup/prover.rs:269-305: z telescopes back to 1 at u =
+            usable rows, and each row satisfies the product relation."""
+            p = F.p
+            u = self.pk.vk.domain.n - (self.pk.vk.cs.blinding_factors() + 1)
+            z_ints = F.decode_ints(z)
+            _sanity(z_ints[0] == 1)
+            _sanity(z_ints[u] == 1, "lookup grand product does not telescope")
+            ai = F.decode_ints(pl["compressed_input"])
+            si = F.decode_ints(pl["compressed_table"])
+            pin = F.decode_ints(pl["permuted_input"])
+            ptab = F.decode_ints(pl["permuted_table"])
+            for i in range(u):
+                left = z_ints[i + 1] * (pin[i] + beta) % p \
+                    * ((ptab[i] + gamma) % p) % p
+                right = z_ints[i] * ((ai[i] + beta) % p) % p \
+                    * ((si[i] + gamma) % p) % p
+                _sanity(left == right, f"lookup product relation at row {i}")
+
+        z, blind = self._commit_product(F.mul(numer, F.batch_inv(denom)),
+                                        check if _sanity_on() else None)
         return {
             "product_poly": z,
             "product_blind": blind,

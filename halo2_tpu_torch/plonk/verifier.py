@@ -6,6 +6,7 @@ scheme's strategy."""
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 from ..commit.base import Blind, VerifierQuery
@@ -214,6 +215,8 @@ def verify_proof(params, vk: VerifyingKey, transcript, instances,
             fold((left - right) * active_rows % p)
 
     expected_h_eval = h_sum * pow((xn - 1) % p, p - 2, p) % p
+    if os.environ.get("HALO2_TPU_DEBUG"):
+        print(f"[dbg verifier] x={x:#x} expected_h_eval={expected_h_eval:#x}")
     h_msm = params.empty_msm()
     power = 1
     for comm in h_commitments:

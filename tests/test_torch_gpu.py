@@ -2,8 +2,11 @@
 halo2_tpu_torch (BN254 and Pasta instances) against their plain PyTorch
 versions on a CUDA device, the sorted fixed-base MSM (CachedMSM) against
 StreamMSM and the CPU, and GPU proofs (KZG / SHPLONK, IPA, and the
-shuffle circuit on KZG / GWC / Keccak256) against CPU proofs; key and
-params serde and the MockProver on the card against the CPU.  Every test
+shuffle circuit on KZG / GWC / Keccak256) against CPU proofs; the
+lookup's host permute against its device permute, and a lookup_heavy
+proof under HALO2_TPU_SANITY=1 (and HALO2_TPU_HOST_LOOKUP=1) against the
+plain one; key and params serde and the MockProver on the card against
+the CPU.  Every test
 needs the card and skips without one.  The file
 imports nothing of JAX, so on a machine without JAX run it as
 
@@ -369,6 +372,49 @@ def test_gpu_ipa_proof_equals_cpu_proof(cuda, tmp_path, monkeypatch):
                                        random.Random(1)))
         assert api.verify(params, pk.vk, proofs[-1], [inst])
     assert proofs[0] == proofs[1]
+
+
+def test_host_permute_matches_device_permute(cuda):
+    """The lookup's host permute (HALO2_TPU_HOST_LOOKUP=1) against the
+    sort-based device permute on CUDA tensors at 2^16 rows: a table with
+    repeats, inputs with ties."""
+    from halo2_tpu_torch.plonk.lookup_sort import (
+        permute_expression_pair, permute_expression_pair_device)
+    F = BN254_FR
+    n = 1 << 16
+    rng = random.Random(5)
+    values = [0, 1, F.p - 1] + _ints(F.p, 5000, 6)
+    table = [rng.choice(values) for _ in range(n)]
+    inp = [rng.choice(table) for _ in range(n)]
+    perm_in, perm_tab = permute_expression_pair(inp, table, "range")
+    a, s = permute_expression_pair_device(F, F.encode_ints(inp, cuda),
+                                          F.encode_ints(table, cuda), n)
+    assert F.decode_ints(a) == perm_in
+    assert F.decode_ints(s) == perm_tab
+
+
+def test_gpu_lookup_sanity_proof_equals_plain(cuda, monkeypatch):
+    """lookup_heavy k=10 on the card: the proofs under HALO2_TPU_SANITY=1,
+    and under it with HALO2_TPU_HOST_LOOKUP=1, equal the plain one (every
+    sanity check passing)."""
+    from halo2_tpu_torch.compat.lookup_heavy import lookup_heavy_instance
+    F, k = BN254_FR, 10
+    circuit, inst, kg_circuit = lookup_heavy_instance(F, k)
+    params = ParamsKZG.new(k, device=cuda)
+    pk = api.keygen(F, params, k, kg_circuit)
+    proofs = []
+    for env in ({}, {"HALO2_TPU_SANITY": "1"},
+                {"HALO2_TPU_SANITY": "1", "HALO2_TPU_HOST_LOOKUP": "1"}):
+        with monkeypatch.context() as mp:
+            for name, value in env.items():
+                mp.setenv(name, value)
+            proofs.append(api.create_proof(
+                params, pk, [circuit], [inst], random.Random(1),
+                multiopen_prover_cls=ProverSHPLONK))
+    assert proofs[0] == proofs[1] == proofs[2]
+    assert api.verify(params, pk.vk, proofs[0], [inst],
+                      multiopen_verifier_cls=VerifierSHPLONK,
+                      strategy_cls=SingleStrategyKZG)
 
 
 def test_gpu_shuffle_gwc_keccak_proof_equals_cpu_proof(cuda):

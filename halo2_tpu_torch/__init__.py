@@ -21,6 +21,11 @@ batch verifier (`plonk/batch.py`), the dev tools (`dev/`: MockProver,
 cost model, gates, layout, tracing planner) and the examples
 (`examples/`).
 
+A proof's record (`create_proof(timings=)`, `trace.py`) holds the
+seconds of its steps and their parts, and its kernel launches, MSM
+elements and host waits; `trace.profiler_ranges()` names the steps on a
+`torch.profiler` trace.
+
 Each kernel has a plain PyTorch version beside it, taken for CPU tensors.
 The package imports no JAX and keeps its own copy of the host code it
 needs (frontend/, native/, compat/, msm/host_msm.py, plonk/errors.py).

@@ -19,7 +19,6 @@ the proof bytes of one device.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional
 
 from .frontend import WitnessCalculator, compile_circuit
@@ -34,6 +33,7 @@ from .plonk import keygen as backend_keygen
 from .plonk.verifier import (  # noqa: F401
     verify_proof as backend_verify_queries)
 from .plonk.verifier import verify_proof_single
+from .trace import Trace
 from .transcript import Blake2bRead, Blake2bWrite
 
 
@@ -51,36 +51,40 @@ def create_proof(params, pk, circuits: List, instances, rng=None,
                  engine: Optional[PlonkEngine] = None,
                  timings: Optional[dict] = None) -> bytes:
     """One proof over one or more circuit instances.  Pass a dict as
-    `timings` to collect the per-[TRANSCRIPT-N] step wall-time table."""
+    `timings` to collect the proof's record (`trace.py`): seconds under
+    each [TRANSCRIPT-N] step and its parts, and the proof's kernel
+    launches, MSM elements and host waits."""
     F = pk.vk.F
     k = pk.vk.k
     rng = rng if rng is not None else new_rng()
     transcript = transcript_cls(params.curve)
     mo_prover = multiopen_prover_cls(params)
+    trace = Trace(timings, params.device)
 
-    t0 = time.time()
-    prover = Prover(params, pk, instances, rng, transcript,
-                    query_instance=mo_prover.QUERY_INSTANCE, engine=engine)
-    if timings is not None:
-        prover.timings = timings
-    prover.timings["instances [T1-2]"] = time.time() - t0
+    with trace.proof():
+        with trace.span("instances [T1-2]"):
+            prover = Prover(params, pk, instances, rng, transcript,
+                            query_instance=mo_prover.QUERY_INSTANCE,
+                            engine=engine, trace=trace)
 
-    t0 = time.time()
-    calcs = []
-    for circuit, inst in zip(circuits, instances):
-        cs_front = ConstraintSystem()
-        config = configure_circuit(circuit, cs_front)
-        calcs.append(WitnessCalculator(F, k, circuit, config, cs_front, inst))
-    challenges = {}
-    for phase in pk.vk.cs.cs.phases():
-        witnesses = [calc.calc(phase, challenges) for calc in calcs]
-        challenges = prover.commit_phase(phase, witnesses)
-    prover.timings["witness+advice_commits [T3-4]"] = time.time() - t0
+        with trace.span("witness+advice_commits [T3-4]"):
+            with trace.span("synthesis [T3-4]"):
+                calcs = []
+                for circuit, inst in zip(circuits, instances):
+                    cs_front = ConstraintSystem()
+                    config = configure_circuit(circuit, cs_front)
+                    calcs.append(WitnessCalculator(F, k, circuit, config,
+                                                   cs_front, inst))
+            challenges = {}
+            for phase in pk.vk.cs.cs.phases():
+                with trace.span("synthesis [T3-4]"):
+                    witnesses = [calc.calc(phase, challenges)
+                                 for calc in calcs]
+                challenges = prover.commit_phase(phase, witnesses)
 
-    queries = prover.create_proof()
-    t0 = time.time()
-    mo_prover.create_proof(rng, transcript, queries)
-    prover.timings["multiopen [T24+]"] = time.time() - t0
+        queries = prover.create_proof()
+        with trace.span("multiopen [T24+]"):
+            mo_prover.create_proof(rng, transcript, queries)
     return transcript.finalize()
 
 

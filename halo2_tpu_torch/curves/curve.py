@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..fields.field import NWORDS, Field
+from ..trace import to_host
 from . import cuda_ec
 
 
@@ -65,7 +66,7 @@ class Curve:
         """(..., 3, 8) -> [(x, y) or None, ...] host ints (one batched
         normalization, one host fetch)."""
         pts = pts.reshape(-1, 3, NWORDS)
-        inf = self.is_identity(pts).to("cpu").tolist()
+        inf = to_host(self.is_identity(pts)).tolist()
         aff = self.batch_normalize(pts)
         vals = self.Fq.decode_ints(aff)
         return [None if inf[i] else (vals[2 * i], vals[2 * i + 1])

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..trace import to_host
 from . import cuda_ops
 from .cuda_ops import ADD, MUL, NWORDS, SUB
 
@@ -116,8 +117,9 @@ class Field:
                              device).reshape(NWORDS)
 
     def words_to_ints(self, arr) -> list:
-        """Raw (..., 8) words -> python ints (no Montgomery map)."""
-        a = arr.detach().to("cpu").contiguous().numpy().astype(np.int32)
+        """Raw (..., 8) words -> python ints (no Montgomery map); from a
+        card, one read that waits for it (`trace.to_host`)."""
+        a = to_host(arr.detach()).contiguous().numpy().astype(np.int32)
         buf = a.view("<u4").tobytes()
         return [int.from_bytes(buf[i:i + 32], "little")
                 for i in range(0, len(buf), 32)]

@@ -14,7 +14,6 @@ byte-identical to the reference's under the same seed.
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, List
 
 import numpy as np
@@ -27,6 +26,7 @@ from ..frontend.expression import ADVICE, FIXED, INSTANCE, Rotation
 from ..ntt import powers
 from ..poly.arith import eval_polys_at_points, prefix_product
 from ..poly.poly import Poly
+from ..trace import Trace
 from .evaluation import evaluate_expression
 from .keygen import ProvingKey
 from .lookup_sort import (permute_expression_pair,
@@ -64,22 +64,6 @@ def _random_poly(F: Field, n: int, rng, device):
     c192 = F.encode_int(pow(2, 192, F.p), device)
     return F.add(F.mul(F.to_mont(words(raw[:, 12:])), c192),
                  F.to_mont(words(raw[:, :12])))
-
-
-def _sync(device):
-    """Wait for the device work queued so far (step timings)."""
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _step_line(name: str, t0: float, device=None) -> float:
-    """One HALO2_TPU_STEP_TIMINGS line, in the reference's format: the wall
-    since t0, after the device's queue drained where a device is given
-    (the reference's block_until_ready).  Returns the new t0."""
-    if device is not None:
-        _sync(device)
-    print(f"    {name}: {time.time() - t0:.2f}s", flush=True)
-    return time.time()
 
 
 class Evaluator:
@@ -230,10 +214,12 @@ class Evaluator:
 
 
 class Prover:
-    """Multi-circuit prover state machine (prover.rs:130-899)."""
+    """Multi-circuit prover state machine (prover.rs:130-899).  Its steps
+    and their parts are spans of `trace` (`trace.Trace`), or of a trace of
+    its own that keeps no record where none is given."""
 
     def __init__(self, params, pk: ProvingKey, instances, rng, transcript,
-                 query_instance: bool, engine=None):
+                 query_instance: bool, engine=None, trace: Trace = None):
         self.params = params
         self.query_instance = query_instance
         self.pk = pk
@@ -241,7 +227,7 @@ class Prover:
         self.device = dev = params.device
         self.rng = rng
         self.transcript = transcript
-        self.timings: Dict[str, float] = {}
+        self.trace = trace if trace is not None else Trace(device=dev)
         self.mesh = engine.mesh if engine is not None else None
         if engine is not None:
             params.set_engine(engine)
@@ -304,48 +290,45 @@ class Prover:
         rng = self.rng
         column_indices = [i for i, ph in enumerate(cs.advice_column_phase)
                           if ph == phase]
+        span = self.trace.span
         for circ, witness in enumerate(witnesses):
             assert set(witness.keys()) == set(column_indices)
             if not column_indices:
                 continue
-            col_vals, blinds = [], []
-            for ci in column_indices:
-                values = [v % F.p for v in witness[ci]]
-                assert len(values) == n
-                if ci not in unblinded:
-                    for r in range(unusable_start, n):
-                        values[r] = rng.randrange(F.p)
-                    blind = Blind(rng.randrange(F.p))
-                else:
-                    if _sanity_on():
-                        _sanity(all(v == 0 for v in values[unusable_start:]),
-                                f"unblinded column {ci} nonzero blinding "
-                                f"rows")
-                    blind = Blind(1)
-                col_vals.append(values)
-                blinds.append(blind)
-            # HALO2_TPU_STEP_TIMINGS=1: the reference's encode / msms /
-            # normalize+write / set split of this step (prover.py:429-460)
-            dbg = os.environ.get("HALO2_TPU_STEP_TIMINGS") == "1"
-            t0 = time.time()
-            cols = F.encode_ints_cols(col_vals, self.device)
-            if dbg:
-                t0 = _step_line("[commit_phase] encode", t0, self.device)
-            pre = PreMSM(self.params.curve)
-            for j in range(len(column_indices)):
-                pre.append_term(1, self.params.commit_lagrange(
-                    Poly.lagrange(cols[j]), blinds[j]))
-            if dbg:
-                t0 = _step_line("[commit_phase] msms", t0, self.device)
-            # [TRANSCRIPT-3]
-            for pt in pre.normalize():
-                self.transcript.write_point(pt)
-            if dbg:
-                t0 = _step_line("[commit_phase] normalize+write", t0)
-            idx = torch.tensor(column_indices, device=self.device)
-            self.advice_values[circ][idx] = cols
-            if dbg:
-                _step_line("[commit_phase] set", t0, self.device)
+            with span("blind [T3-4]"):
+                col_vals, blinds = [], []
+                for ci in column_indices:
+                    values = [v % F.p for v in witness[ci]]
+                    assert len(values) == n
+                    if ci not in unblinded:
+                        for r in range(unusable_start, n):
+                            values[r] = rng.randrange(F.p)
+                        blind = Blind(rng.randrange(F.p))
+                    else:
+                        if _sanity_on():
+                            _sanity(all(v == 0
+                                        for v in values[unusable_start:]),
+                                    f"unblinded column {ci} nonzero "
+                                    f"blinding rows")
+                        blind = Blind(1)
+                    col_vals.append(values)
+                    blinds.append(blind)
+            # the reference's encode / msms / normalize+write / set split
+            # of this step (prover.py:429-460)
+            with span("encode [T3-4]"):
+                cols = F.encode_ints_cols(col_vals, self.device)
+            with span("msms [T3-4]"):
+                pre = PreMSM(self.params.curve)
+                for j in range(len(column_indices)):
+                    pre.append_term(1, self.params.commit_lagrange(
+                        Poly.lagrange(cols[j]), blinds[j]))
+            with span("normalize+write [T3-4]"):
+                # [TRANSCRIPT-3]
+                for pt in pre.normalize():
+                    self.transcript.write_point(pt)
+            with span("set [T3-4]"):
+                idx = torch.tensor(column_indices, device=self.device)
+                self.advice_values[circ][idx] = cols
             for j, ci in enumerate(column_indices):
                 self.advice_blinds[circ][ci] = blinds[j]
         # [TRANSCRIPT-4]
@@ -358,12 +341,8 @@ class Prover:
     # ------------------------------------------------------------------
 
     def _tick(self, name: str):
-        """Charge the wall time since the previous tick to step `name`,
-        after the device finished the step's work."""
-        _sync(self.device)
-        now = time.time()
-        self.timings[name] = self.timings.get(name, 0.0) + now - self._t_last
-        self._t_last = now
+        """Ends prover step `name`: closes its span."""
+        self.trace.close(name)
 
     def create_proof(self) -> List[ProverQuery]:
         F = self.F
@@ -379,8 +358,8 @@ class Prover:
         rng = self.rng
         t = self.transcript
         n_circ = len(self.instance_values)
-        _sync(dev)
-        self._t_last = time.time()
+        trace = self.trace
+        trace.open("lookup_permute [T5-6]")
 
         challenges_enc = [F.encode_int(self.challenges[i], dev)
                           for i in range(cs.num_challenges)]
@@ -393,30 +372,28 @@ class Prover:
         self._tick("lookup_permute [T5-6]")
 
         # [TRANSCRIPT-7/8] beta, gamma; [9] permutation; [10] lookup
-        # products; [11] shuffle products
+        # products; [11] shuffle products (the reference's per-argument
+        # split, prover.py:543-585)
+        trace.open("grand_products [T9-11]")
         beta = t.squeeze_challenge()
         gamma = t.squeeze_challenge()
-        # HALO2_TPU_STEP_TIMINGS=1: the reference's per-argument lines
-        # (prover.py:543-585)
-        dbg = os.environ.get("HALO2_TPU_STEP_TIMINGS") == "1"
-        t9 = time.time()
-        permutations_z = [self._permutation_commit(c, beta, gamma)
-                          for c in range(n_circ)]
-        if dbg:
-            t9 = _step_line("[T9] permutation_commit", t9)
-        lookups_committed = [[self._lookup_commit_product(pl, beta, gamma)
-                              for pl in permuted[c]] for c in range(n_circ)]
-        if dbg:
-            t9 = _step_line("[T10] lookup_products", t9)
+        with trace.span("permutation_commit [T9]"):
+            permutations_z = [self._permutation_commit(c, beta, gamma)
+                              for c in range(n_circ)]
+        with trace.span("lookup_products [T10]"):
+            lookups_committed = [[self._lookup_commit_product(pl, beta,
+                                                              gamma)
+                                  for pl in permuted[c]]
+                                 for c in range(n_circ)]
         permuted = None     # the Lagrange intermediates are dead from here
-        shuffles_committed = [[self._shuffle_commit_product(
-            c, sh, theta, gamma, challenges_enc) for sh in cs.shuffles]
-            for c in range(n_circ)]
-        if dbg:
-            _step_line("[T11] shuffle_products", t9)
+        with trace.span("shuffle_products [T11]"):
+            shuffles_committed = [[self._shuffle_commit_product(
+                c, sh, theta, gamma, challenges_enc) for sh in cs.shuffles]
+                for c in range(n_circ)]
         self._tick("grand_products [T9-11]")
 
         # [TRANSCRIPT-12] vanishing random poly
+        trace.open("vanishing_random [T12]")
         random_poly = Poly.coeff(_random_poly(F, n, rng, dev))
         random_blind = Blind(rng.randrange(p))
         t.write_point(params.commit_affine(random_poly, random_blind))
@@ -427,6 +404,7 @@ class Prover:
         self._tick("vanishing_random [T12]")
 
         # [TRANSCRIPT-13] y; evaluate h
+        trace.open("evaluate_h [T13]")
         y = t.squeeze_challenge()
         h_ext = pk.ev.evaluate_h(
             pk, advice_polys, self.instance_polys, challenges_enc,
@@ -441,6 +419,7 @@ class Prover:
         self._tick("evaluate_h [T13]")
 
         # [TRANSCRIPT-14] h pieces
+        trace.open("h_pieces [T14]")
         h_coeff = domain.extended_to_coeff(
             domain.divide_by_vanishing_poly(h_ext))
         n_pieces = domain.quotient_poly_degree
@@ -454,6 +433,7 @@ class Prover:
         self._tick("h_pieces [T14]")
 
         # [TRANSCRIPT-15] x
+        trace.open("evals [T15-23]")
         x = t.squeeze_challenge()
         xn = pow(x, n, p)
         h_poly = None

@@ -14,6 +14,8 @@ moved with `.to(device)` once per device.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
@@ -29,6 +31,35 @@ def _words_tensor(vals, device) -> torch.Tensor:
     buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
     arr = np.frombuffer(buf, dtype="<u4").view(np.int32).reshape(-1, NWORDS)
     return torch.from_numpy(arr.copy()).to(device)
+
+
+# Elements of every `Field.encode_ints_cols` since import: through 64-bit
+# words (narrow) and through 32-byte serialization (wide).
+_ENCODED = dict(narrow=0, wide=0)
+
+
+def encode_counters() -> dict:
+    """Elements the column encoder took through each path so far."""
+    return dict(_ENCODED)
+
+
+def _narrow_words(cols, rows: int, device: torch.device):
+    """The first `rows` values of each column as (m, rows, 2) int32 words
+    on `device` (a value's low and high half), in one copy, from pinned
+    memory to a card; and the indices of the columns holding a value
+    outside [0, 2^64), whose rows there are undefined."""
+    pin = device.type == "cuda"
+    host = torch.empty((len(cols), rows, 2), dtype=torch.int32,
+                       pin_memory=pin)
+    u64 = host.numpy().view(np.uint64).reshape(len(cols), rows)
+    wide = []
+    for j, col in enumerate(cols):
+        try:
+            u64[j] = np.fromiter(col, dtype=np.uint64, count=rows)
+        except OverflowError:
+            wide.append(j)
+    # PyTorch keeps a pinned block from reuse until its copy has run
+    return host.to(device, non_blocking=pin), wide
 
 
 class Field:
@@ -100,17 +131,38 @@ class Field:
             return torch.zeros((0, NWORDS), dtype=torch.int32, device=device)
         return self.to_mont(_words_tensor(vals, device))
 
-    def encode_ints_cols(self, cols, device) -> torch.Tensor:
-        """m equal-length columns of python ints -> (m, n, 8), one host
-        serialization and one to-Montgomery dispatch."""
+    def encode_ints_cols(self, cols, device, tail=None) -> torch.Tensor:
+        """m equal-length columns of python ints -> (m, n, 8), one
+        to-Montgomery dispatch.
+
+        A column whose values all lie in [0, 2^64), and so below p, goes
+        to the device as 64-bit words, all such columns in one copy; any
+        other column is reduced mod p and serialized value by value.
+        `tail`, m lists of t values, replaces each column's last t rows
+        (a prover's blinding rows), serialized; the columns' own last t
+        values are not read."""
         m = len(cols)
         if m == 0:
             return torch.zeros((0, 0, NWORDS), dtype=torch.int32,
                                device=device)
+        device = torch.device(device)
         n = len(cols[0])
+        rows = n - (len(tail[0]) if tail else 0)
         p = self.p
-        words = _words_tensor([v % p for col in cols for v in col], device)
-        return self.to_mont(words).reshape(m, n, NWORDS)
+        words = torch.zeros((m, n, NWORDS), dtype=torch.int32, device=device)
+        narrow, wide = _narrow_words(cols, rows, device)
+        words[:, :rows, :2] = narrow
+        del narrow      # before the Montgomery map: no higher peak
+        for j in wide:
+            words[j, :rows] = _words_tensor(
+                [v % p for v in itertools.islice(cols[j], rows)], device)
+        if rows < n:
+            words[:, rows:] = _words_tensor(
+                [v % p for col in tail for v in col], device).reshape(
+                    m, n - rows, NWORDS)
+        _ENCODED["narrow"] += (m - len(wide)) * rows
+        _ENCODED["wide"] += len(wide) * rows + m * (n - rows)
+        return self.to_mont(words)
 
     def encode_int(self, x: int, device) -> torch.Tensor:
         return _words_tensor([self.to_mont_int(int(x) % self.p)],

@@ -295,28 +295,32 @@ class Prover:
             assert set(witness.keys()) == set(column_indices)
             if not column_indices:
                 continue
+            # the witness's rows below unusable_start are encoded as they
+            # are (canonical from the calculator, reduced by the encoder if
+            # not); the rows from there on are drawn, or the witness's own
             with span("blind [T3-4]"):
-                col_vals, blinds = [], []
+                col_vals, tails, blinds = [], [], []
                 for ci in column_indices:
-                    values = [v % F.p for v in witness[ci]]
+                    values = witness[ci]
                     assert len(values) == n
                     if ci not in unblinded:
-                        for r in range(unusable_start, n):
-                            values[r] = rng.randrange(F.p)
+                        tail = [rng.randrange(F.p)
+                                for _ in range(unusable_start, n)]
                         blind = Blind(rng.randrange(F.p))
                     else:
+                        tail = values[unusable_start:]
                         if _sanity_on():
-                            _sanity(all(v == 0
-                                        for v in values[unusable_start:]),
+                            _sanity(all(v % F.p == 0 for v in tail),
                                     f"unblinded column {ci} nonzero "
                                     f"blinding rows")
                         blind = Blind(1)
                     col_vals.append(values)
+                    tails.append(tail)
                     blinds.append(blind)
             # the reference's encode / msms / normalize+write / set split
             # of this step (prover.py:429-460)
             with span("encode [T3-4]"):
-                cols = F.encode_ints_cols(col_vals, self.device)
+                cols = F.encode_ints_cols(col_vals, self.device, tail=tails)
             with span("msms [T3-4]"):
                 pre = PreMSM(self.params.curve)
                 for j in range(len(column_indices)):

@@ -15,6 +15,11 @@ and its children split it, so a child's seconds are part of its parent's.
   host_wait        seconds the host spent blocked on the device: in
                    `_sync` and in `to_host`, the program's explicit
                    device-to-host reads (the copy included)
+  encode_narrow    elements the column encoder (`Field.encode_ints_cols`)
+                   sent as 64-bit words: columns of values in [0, 2^64)
+  encode_wide      elements it reduced and serialized value by value:
+                   other columns, and a prover's blinding rows
+                   (`fields.field.encode_counters()`)
 
 With a record, each span waits for the device's queued work at its close,
 so that a step is charged the device work it queued.  Without one, the
@@ -75,7 +80,8 @@ LINES = {
     "shuffle_products [T11]": "[T11] shuffle_products",
 }
 
-COUNTERS = ("kernel_launches", "msm_streamed", "msm_added", "host_wait")
+COUNTERS = ("kernel_launches", "msm_streamed", "msm_added", "host_wait",
+            "encode_narrow", "encode_wide")
 
 _HOST_WAIT = [0.0]      # seconds in _sync and to_host since import
 _RANGES = [0]           # depth of profiler_ranges()
@@ -115,11 +121,14 @@ def _counters() -> dict:
     """The process's counters so far, under their record keys.  Reading
     the MSM's count waits for the device."""
     from . import _build
+    from .fields import field
     from .msm import stream_msm
     msm = stream_msm.stream_counters()
+    enc = field.encode_counters()
     return {"kernel_launches": sum(_build.launch_counts().values()),
             "msm_streamed": msm["streamed"], "msm_added": msm["added"],
-            "host_wait": _HOST_WAIT[0]}
+            "host_wait": _HOST_WAIT[0], "encode_narrow": enc["narrow"],
+            "encode_wide": enc["wide"]}
 
 
 class Trace:

@@ -1,7 +1,8 @@
 """lookup_heavy (four 16-bit range lookups per row) at its smallest k,
 KZG / SHPLONK / Blake2b, against the JAX reference: equal verifying keys,
-byte-identical proofs under random.Random(1), and each package verifying
-the other's proof (and rejecting a tampered one).  Split from
+byte-identical proofs under random.Random(1) (also with a witness column
+of unreduced values >= 2^64), and each package verifying the other's
+proof (and rejecting a tampered one).  Split from
 test_torch_e2e.py so that test workers share the load.
 
 Then the reference's diagnostic switches on the port: a prove under
@@ -95,6 +96,34 @@ def test_lookup_heavy_matches_reference(lookup_heavy_pair):
     assert _verify(pp, ppk.vk, rproof, inst)
     assert _ref_verify((rp, rpk, rproof, inst), pproof)
     assert not _verify(pp, ppk.vk, _tampered(pproof, 64), inst)
+
+
+def test_unreduced_witness_proof_matches_reference(lookup_heavy_pair,
+                                                   monkeypatch):
+    """A witness column of values >= 2^64, each the calculator's value plus
+    p: commit_phase's encoder reduces that column value by value (every
+    other column goes as 64-bit words), and the proof is still the
+    reference's byte for byte."""
+    from halo2_tpu_torch.compat.lookup_heavy import lookup_heavy_instance
+    from halo2_tpu_torch.fields import field
+    (_, _, rproof, inst), (pp, ppk, _, _) = lookup_heavy_pair
+
+    class Unreduced(api.WitnessCalculator):
+        def calc(self, phase, challenges):
+            witness = super().calc(phase, challenges)
+            witness[0] = [v + F.p for v in witness[0]]
+            return witness
+
+    monkeypatch.setattr(api, "WitnessCalculator", Unreduced)
+    circuit, _, _ = lookup_heavy_instance(F, K_LH)
+    before = field.encode_counters()
+    proof = api.create_proof(pp, ppk, [circuit], [inst], random.Random(1),
+                             multiopen_prover_cls=ProverSHPLONK)
+    wide = field.encode_counters()["wide"] - before["wide"]
+    n, bf = ppk.vk.domain.n, ppk.vk.cs.blinding_factors()
+    na = ppk.vk.cs.cs.num_advice_columns
+    assert wide == (n - bf - 1) + na * (bf + 1)
+    assert proof == rproof
 
 
 # ----------------------------------------------------------------------

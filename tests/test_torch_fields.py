@@ -13,7 +13,7 @@ from halo2_tpu.fields import (BN254_FQ as REF_FQ, BN254_FR as REF_FR,
                               PASTA_FQ as REF_PASTA_FQ)
 from halo2_tpu_torch.compat.from_jax import limbs_from_jax, limbs_to_jax
 from halo2_tpu_torch.fields import (BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ,
-                                    cuda_ops)
+                                    cuda_ops, field)
 
 # The plain versions run many small tensor ops: one thread per worker
 # is as fast and leaves the other cores to the other test workers.
@@ -97,6 +97,57 @@ def test_kernel_a_plain_against_ints(name, monkeypatch):
                                           for x, y in zip(xs, ys)], path
             out = cuda_ops.binop_plain(F, mode, a, scalar)
             assert F.decode_ints(out) == [fn(x, ys[10]) % p for x in xs], path
+
+
+def _encoder_case(case: str):
+    """(columns, tail, elements expected narrow, expected wide) of
+    `encode_ints_cols` on 24 rows of BN254 Fr."""
+    p = BN254_FR.p
+    small = [[(i * 7919 + j) % (1 << 16) for i in range(24)]
+             for j in range(3)]
+
+    def with_value(v, at=5):
+        col = list(small[0])
+        col[at] = v
+        return col
+    high = with_value((1 << 64) - 1)
+    high[7] = (1 << 33) + 12345
+    return {
+        "small": (small, None, 72, 0),
+        "max_u64": ([high], None, 24, 0),
+        "u64_overflow": ([with_value(1 << 64)], None, 0, 24),
+        "above_p": ([with_value(p + 5)], None, 0, 24),
+        "negative": ([with_value(-3, at=23)], None, 0, 24),
+        "mixed": ([small[0], with_value(p + 5), small[1],
+                   with_value(-1)], None, 48, 48),
+        "no_columns": ([], None, 0, 0),
+        "tail": (small, [_ints(p, 0, seed=j) for j in range(3)], 60, 12),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["small", "max_u64", "u64_overflow",
+                                  "above_p", "negative", "mixed",
+                                  "no_columns", "tail"])
+def test_encode_ints_cols_words_and_paths(case):
+    """The column encoder's words equal the 32-byte path's (each value
+    reduced mod p, serialized, then the Montgomery map), column by column
+    on either path, and its counters grow by the elements each path
+    took."""
+    F = BN254_FR
+    cols, tail, narrow, wide = _encoder_case(case)
+    before = field.encode_counters()
+    ours = F.encode_ints_cols(cols, "cpu", tail=tail)
+    after = field.encode_counters()
+    assert after["narrow"] - before["narrow"] == narrow
+    assert after["wide"] - before["wide"] == wide
+    if tail:
+        cols = [c[:len(c) - len(t)] + t for c, t in zip(cols, tail)]
+    n = len(cols[0]) if cols else 0
+    want = F.to_mont(field._words_tensor(
+        [v % F.p for col in cols for v in col], "cpu")).reshape(
+            len(cols), n, 8)
+    assert ours.shape == want.shape and ours.dtype == torch.int32
+    assert torch.equal(ours, want)
 
 
 def test_unary_ops_and_inverses():

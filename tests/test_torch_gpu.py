@@ -6,7 +6,7 @@ shuffle circuit on KZG / GWC / Keccak256) against CPU proofs; the
 lookup's host permute against its device permute, and a lookup_heavy
 proof under HALO2_TPU_SANITY=1 (and HALO2_TPU_HOST_LOOKUP=1) against the
 plain one; key and params serde and the MockProver on the card against
-the CPU.  Every test
+the CPU; the column encoder's words against the CPU's.  Every test
 needs the card and skips without one.  The file
 imports nothing of JAX, so on a machine without JAX run it as
 
@@ -61,6 +61,23 @@ def _ints(p: int, n: int, seed: int) -> list:
     vals = [sum(int(w) << (32 * i) for i, w in enumerate(r)) % p
             for r in words]
     return [0, 1, p - 1] + vals
+
+
+def test_column_encoder_matches_cpu(cuda):
+    """`encode_ints_cols` on the card (64-bit columns in one pinned copy, a
+    wide column, a tail of drawn rows) equals the CPU's words; two calls
+    back to back, so a reused pinned block would show."""
+    F = BN254_FR
+    n, rng = 1 << 16, random.Random(5)
+    calls = []
+    for _ in range(2):
+        cols = [[rng.randrange(1 << 33) for _ in range(n)] for _ in range(4)]
+        cols[2][n // 3] = F.p + 5
+        tail = [[rng.randrange(F.p) for _ in range(6)] for _ in cols]
+        calls.append((cols, tail, F.encode_ints_cols(cols, cuda, tail=tail)))
+    for cols, tail, got in calls:
+        assert torch.equal(got.cpu(), F.encode_ints_cols(cols, "cpu",
+                                                         tail=tail))
 
 
 @pytest.mark.parametrize("F", [BN254_FR, BN254_FQ, PASTA_FP, PASTA_FQ],

@@ -37,7 +37,8 @@ T911_PARTS = ["permutation_commit [T9]", "lookup_products [T10]",
 STEPS = ["instances [T1-2]", T34, "lookup_permute [T5-6]", T911,
          "vanishing_random [T12]", "evaluate_h [T13]", "h_pieces [T14]",
          "evals [T15-23]", "multiopen [T24+]"]
-COUNTERS = ["kernel_launches", "msm_streamed", "msm_added", "host_wait"]
+COUNTERS = ["kernel_launches", "msm_streamed", "msm_added", "host_wait",
+            "encode_narrow", "encode_wide"]
 
 
 def _keys(device):
@@ -103,7 +104,7 @@ def ranged(keys):
 
 
 def test_record_holds_every_span_and_counter(recorded):
-    """Every step and part the record names, and the four counters; the
+    """Every step and part the record names, and the six counters; the
     parts of T3-4 and of T9-11 within their steps."""
     _, record, _, _ = recorded
     want = STEPS + T34_PARTS + T911_PARTS + COUNTERS
@@ -122,6 +123,20 @@ def test_msm_counters_are_the_stream_counters_growth(recorded):
     assert record["msm_streamed"] == after["streamed"] - before["streamed"]
     assert record["msm_added"] == after["added"] - before["added"]
     assert 0 < record["msm_added"] < record["msm_streamed"]
+
+
+def test_encode_counters_count_the_proofs_columns(keys, recorded):
+    """The instance and the witness rows of every advice column go to the
+    device as 64-bit words (16-bit values and their sums), the drawn
+    blinding rows value by value."""
+    _, record, _, _ = recorded
+    pk = keys[1]
+    cs = pk.vk.cs.cs
+    n, bf = pk.vk.domain.n, pk.vk.cs.blinding_factors()
+    na = cs.num_advice_columns
+    assert record["encode_narrow"] == \
+        na * (n - bf - 1) + cs.num_instance_columns * n
+    assert record["encode_wide"] == na * (bf + 1)
 
 
 def test_a_record_accumulates_over_proofs(keys, recorded):

@@ -5,6 +5,11 @@ One witness commitment per distinct opening point z:
 W_z = commit(sum_i v^i p_i / (X - z)), the points in the order the query
 list first meets them; the verifier folds everything into its DualMSM
 with powers of u.
+
+The prover's parts are spans of the proof's record (`trace.py`), within
+`multiopen [T24+]`: `gwc_fold` (the v-fold at each point), `gwc_divide`
+(the Kate division) and `gwc_commit` (each W's commitment and its write);
+`gwc_points` counts the points.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from typing import List
 
 import torch
 
+from .. import trace
 from ..poly.arith import kate_division, tree_sum
 from ..poly.poly import COEFF, unwrap
 from .base import ProverQuery, VerifierQuery
@@ -40,22 +46,28 @@ class ProverGWC:
         p = F.p
         dev = params.device
         v = transcript.squeeze_challenge()
-        for z, qs in _group_by_point(queries):
-            vpows = [1] * len(qs)
-            for i in range(1, len(qs)):
-                vpows[i] = vpows[i - 1] * v % p
-            stack = torch.stack([unwrap(q.poly_ref.poly, COEFF, "ProverGWC")
-                                 for q in qs])
+        groups = _group_by_point(queries)
+        spans = trace.current()
+        spans.count("gwc_points", len(groups))
+        for z, qs in groups:
+            with spans.span("gwc_fold [T24+]"):
+                vpows = [1] * len(qs)
+                for i in range(1, len(qs)):
+                    vpows[i] = vpows[i - 1] * v % p
+                stack = torch.stack([unwrap(q.poly_ref.poly, COEFF,
+                                            "ProverGWC") for q in qs])
+                fold = tree_sum(F, F.mul(stack, F.encode_ints(vpows, dev)
+                                         [:, None, :]), dim=0)
             # (sum_i v^i p_i) / (X - z): the Kate division drops exactly
             # the folded evaluation, so no eval is subtracted
             # (gwc/prover.rs:58-90)
-            fold = tree_sum(F, F.mul(stack, F.encode_ints(vpows, dev)
-                                     [:, None, :]), dim=0)
-            w = kate_division(F, fold, F.encode_int(z, dev))
-            # n - 1 coefficients: pad to n so that the commitment goes
-            # through the params' cached fixed-base table
-            w = torch.cat([w, torch.zeros_like(fold[w.shape[0]:])])
-            transcript.write_point(params.commit_affine(w))
+            with spans.span("gwc_divide [T24+]"):
+                w = kate_division(F, fold, F.encode_int(z, dev))
+            with spans.span("gwc_commit [T24+]"):
+                # n - 1 coefficients: pad to n so that the commitment goes
+                # through the params' cached fixed-base table
+                w = torch.cat([w, torch.zeros_like(fold[w.shape[0]:])])
+                transcript.write_point(params.commit_affine(w))
 
 
 class VerifierGWC:

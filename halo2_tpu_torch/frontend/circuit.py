@@ -274,6 +274,24 @@ class Region:
         if self._shape is None:
             self._assignment.copy(a.column, a.row, b.column, b.row)
 
+    def constrain_equal_rows(self, a: Column, a_offsets, b: Column,
+                             b_offsets):
+        """Bulk `constrain_equal`: column a at offset a_offsets[i] equals
+        column b at offset b_offsets[i], for every i, in one call (see
+        assign_advice_column).  A circuit with a copy a row would
+        otherwise make two `Cell`s and a call per copy in every proof's
+        synthesis, where the witness calculator drops them all."""
+        if self._shape is not None:
+            return
+        start = self._start
+        rows = ((start + i, start + j) for i, j in zip(a_offsets, b_offsets))
+        sink = self._assignment
+        if hasattr(sink, "copy_rows"):
+            sink.copy_rows(a, b, rows)
+        else:
+            for i, j in rows:
+                sink.copy(a, i, b, j)
+
     def constrain_constant(self, cell: Cell, constant: int):
         if self._shape is None:
             self._layouter._constants_to_assign.append((constant, cell))
@@ -649,6 +667,9 @@ class WitnessCollection:
         pass
 
     def copy(self, *args):
+        pass
+
+    def copy_rows(self, *args):
         pass
 
     def get_challenge(self, challenge: Challenge) -> Value:

@@ -342,6 +342,13 @@ class Prover:
                 self.challenges[index] = self.transcript.squeeze_challenge()
         return dict(self.challenges)
 
+    @property
+    def timings(self) -> dict:
+        """The proof's record so far (`trace.Trace.record`): seconds under
+        each step and part, as the reference keeps its step table on the
+        prover."""
+        return self.trace.record
+
     # ------------------------------------------------------------------
 
     def _tick(self, name: str):

@@ -21,6 +21,15 @@ and its children split it, so a child's seconds are part of its parent's.
                    other columns, and a prover's blinding rows
                    (`fields.field.encode_counters()`)
 
+Code that knows a count of its own adds it with `Trace.count`, to a kept
+record only; it is in the records of the proofs that make it:
+
+  gwc_points       the distinct opening points of the GWC multi-open, one
+                   witness commitment each (`commit/gwc.py`)
+
+Code below `create_proof` that has no trace handed to it, such as a
+multi-open prover, reaches the proof's with `current()`.
+
 With a record, each span waits for the device's queued work at its close,
 so that a step is charged the device work it queued.  Without one, the
 spans read the clock and never wait.  `HALO2_TPU_STEP_TIMINGS=1` prints,
@@ -39,6 +48,7 @@ ranges.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 import time
 
@@ -67,6 +77,9 @@ SPANS = {
     "h_pieces [T14]": None,
     "evals [T15-23]": None,
     "multiopen [T24+]": None,
+    "gwc_fold [T24+]": "multiopen [T24+]",
+    "gwc_divide [T24+]": "multiopen [T24+]",
+    "gwc_commit [T24+]": "multiopen [T24+]",
 }
 
 # the reference's HALO2_TPU_STEP_TIMINGS label of the spans that print one
@@ -85,6 +98,7 @@ COUNTERS = ("kernel_launches", "msm_streamed", "msm_added", "host_wait",
 
 _HOST_WAIT = [0.0]      # seconds in _sync and to_host since import
 _RANGES = [0]           # depth of profiler_ranges()
+_PROOF = contextvars.ContextVar("proof_trace", default=None)
 
 
 def _sync(device: torch.device):
@@ -131,6 +145,12 @@ def _counters() -> dict:
             "encode_wide": enc["wide"]}
 
 
+def current() -> "Trace":
+    """The trace of the proof being made (`Trace.proof`), or, outside any
+    proof, a new one that keeps no record."""
+    return _PROOF.get() or Trace()
+
+
 class Trace:
     """One proof's spans, open as a stack, summed into `record`: the
     caller's dict, or a dict of its own where the caller keeps none."""
@@ -166,6 +186,11 @@ class Trace:
         if self.lines and name in LINES:
             print(f"    {LINES[name]}: {secs:.2f}s", flush=True)
 
+    def count(self, key: str, n: int):
+        """Adds n to a kept record's `key`."""
+        if self.keep:
+            self.record[key] = self.record.get(key, 0) + n
+
     @contextlib.contextmanager
     def span(self, name: str):
         self.open(name)
@@ -177,9 +202,11 @@ class Trace:
         """Around one whole proof: adds the counters' growth over it to a
         kept record.  Spans left open by an error are dropped."""
         before = _counters() if self.keep else None
+        token = _PROOF.set(self)
         try:
             yield
         finally:
+            _PROOF.reset(token)
             while self._open:
                 rng = self._open.pop()[2]
                 if rng is not None:

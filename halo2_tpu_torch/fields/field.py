@@ -19,6 +19,7 @@ import itertools
 import numpy as np
 import torch
 
+from .. import native
 from ..trace import to_host
 from . import cuda_ops
 from .cuda_ops import ADD, MUL, NWORDS, SUB
@@ -26,16 +27,39 @@ from .cuda_ops import ADD, MUL, NWORDS, SUB
 INV_BLOCK = 16      # rows per level of the blocked batch inversion
 
 
-def _words_tensor(vals, device) -> torch.Tensor:
-    """python ints < 2^256 -> (n, 8) int32 words (no Montgomery map)."""
+def _write_words(vals, rows: int, out: torch.Tensor, p: int = None) -> bool:
+    """The first `rows` of `vals`, each reduced mod `p` unless p is None,
+    as words into `out`, a (rows, 8) int32 CPU tensor: in one native pass
+    (`native.encode_words`) where the host library loads, `vals` is a list
+    and each value an int in [0, 2^256); else value by value through
+    `int.to_bytes`.  True where the native pass wrote them."""
+    if (out.dtype != torch.int32 or out.device.type != "cpu"
+            or tuple(out.shape) != (rows, NWORDS)
+            or not out.is_contiguous()):
+        raise ValueError("words buffer must be a contiguous (rows, 8) "
+                         "int32 CPU tensor")
+    if native.encode_words(vals, rows, out.data_ptr(), p):
+        return True
+    vals = itertools.islice(vals, rows)
+    if p is not None:
+        vals = [int(v) % p for v in vals]
     buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
-    arr = np.frombuffer(buf, dtype="<u4").view(np.int32).reshape(-1, NWORDS)
-    return torch.from_numpy(arr.copy()).to(device)
+    out.numpy()[:] = np.frombuffer(buf, dtype="<u4").view(
+        np.int32).reshape(rows, NWORDS)
+    return False
+
+
+def _words_tensor(vals: list, device) -> torch.Tensor:
+    """python ints < 2^256 -> (n, 8) int32 words (no Montgomery map)."""
+    host = torch.empty((len(vals), NWORDS), dtype=torch.int32)
+    _write_words(vals, len(vals), host)
+    return host.to(device)
 
 
 # Elements of every `Field.encode_ints_cols` since import: through 64-bit
-# words (narrow) and through 32-byte serialization (wide).
-_ENCODED = dict(narrow=0, wide=0)
+# words (narrow), through 32-byte words (wide), and of the wide ones those
+# the native pass wrote (native).
+_ENCODED = dict(narrow=0, wide=0, native=0)
 
 
 def encode_counters() -> dict:
@@ -137,31 +161,43 @@ class Field:
 
         A column whose values all lie in [0, 2^64), and so below p, goes
         to the device as 64-bit words, all such columns in one copy; any
-        other column is reduced mod p and serialized value by value.
-        `tail`, m lists of t values, replaces each column's last t rows
-        (a prover's blinding rows), serialized; the columns' own last t
-        values are not read."""
+        other column is reduced mod p into 32-byte words, in one native
+        pass where it can be (`_write_words`), and copied from one pinned
+        staging buffer, a copy a column.  `tail`, m lists of t values,
+        replaces each column's last t rows (a prover's blinding rows) in
+        32-byte words the same way; the columns' own last t values are
+        not read."""
         m = len(cols)
         if m == 0:
             return torch.zeros((0, 0, NWORDS), dtype=torch.int32,
                                device=device)
         device = torch.device(device)
+        pin = device.type == "cuda"
         n = len(cols[0])
-        rows = n - (len(tail[0]) if tail else 0)
+        t = len(tail[0]) if tail else 0
+        rows = n - t
         p = self.p
         words = torch.zeros((m, n, NWORDS), dtype=torch.int32, device=device)
         narrow, wide = _narrow_words(cols, rows, device)
         words[:, :rows, :2] = narrow
         del narrow      # before the Montgomery map: no higher peak
-        for j in wide:
-            words[j, :rows] = _words_tensor(
-                [v % p for v in itertools.islice(cols[j], rows)], device)
-        if rows < n:
-            words[:, rows:] = _words_tensor(
-                [v % p for col in tail for v in col], device).reshape(
-                    m, n - rows, NWORDS)
+        native_elems = 0
+        if wide:
+            # PyTorch keeps a pinned block from reuse until its copies ran
+            host = torch.empty((len(wide), rows, NWORDS), dtype=torch.int32,
+                               pin_memory=pin)
+            for i, j in enumerate(wide):
+                native_elems += rows * _write_words(cols[j], rows, host[i], p)
+                words[j, :rows].copy_(host[i], non_blocking=pin)
+        if t:
+            host = torch.empty((m, t, NWORDS), dtype=torch.int32,
+                               pin_memory=pin)
+            for j, col in enumerate(tail):
+                native_elems += t * _write_words(col, t, host[j], p)
+            words[:, rows:] = host.to(device, non_blocking=pin)
         _ENCODED["narrow"] += (m - len(wide)) * rows
-        _ENCODED["wide"] += len(wide) * rows + m * (n - rows)
+        _ENCODED["wide"] += len(wide) * rows + m * t
+        _ENCODED["native"] += native_elems
         return self.to_mont(words)
 
     def encode_int(self, x: int, device) -> torch.Tensor:

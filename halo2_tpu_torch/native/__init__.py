@@ -1,11 +1,15 @@
 """Native host library: compile-on-demand C++ for the verifier-side
 primitives the reference gets from compiled Rust (halo2curves pairing,
-sha3 Keccak-256).  The card runs the prover's array math; these host-side
-scalar primitives run as -O3 native code instead of Python big-int loops.
+sha3 Keccak-256), and the prover's column encoder (`src/encode.cpp`: a
+list of python ints to the words of their residues, for
+`fields/field.py`).  The card runs the prover's array math; these
+host-side scalar primitives run as -O3 native code instead of Python
+big-int loops.
 
 Gracefully degrades: if the toolchain or the built .so is unavailable,
-callers fall back to the pure-Python implementation (compat/bn254_pairing.py).
-The library builds with g++ into the package's `_build/native/`.
+callers fall back to the pure-Python implementation (compat/bn254_pairing.py,
+`fields.field`'s `to_bytes`).  Each library builds with g++ into the
+package's `_build/native/`, named by a hash of its source and flags.
 """
 
 from __future__ import annotations
@@ -14,14 +18,15 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sysconfig
 import threading
 from typing import List, Optional, Sequence, Tuple
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                    "src", "bn254.cpp")
+_SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+_SRC = os.path.join(_SRC_DIR, "bn254.cpp")
+_ENCODE_SRC = os.path.join(_SRC_DIR, "encode.cpp")
 _LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-_TRIED = False
+_LOADED: dict = {}      # library name -> the loaded library, or None
 
 
 def _cache_dir() -> str:
@@ -32,16 +37,17 @@ def _cache_dir() -> str:
     return d
 
 
-def _build() -> Optional[str]:
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    out = os.path.join(_cache_dir(), f"libhalo2native-{tag}.so")
+def _build(src: str = _SRC, name: str = "libhalo2native",
+           flags: Sequence[str] = ()) -> Optional[str]:
+    with open(src, "rb") as f:
+        data = f.read()
+    tag = hashlib.sha256(data + " ".join(flags).encode()).hexdigest()[:16]
+    out = os.path.join(_cache_dir(), f"{name}-{tag}.so")
     if os.path.exists(out):
         return out
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-           "-o", tmp, _SRC]
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *flags,
+           "-o", tmp, src]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
@@ -51,36 +57,83 @@ def _build() -> Optional[str]:
         return None
 
 
+def _load(name: str, src: str, flags: Sequence[str], cls, declare):
+    """The library `name` built from `src`, loaded once by `cls` and its
+    functions declared by `declare`; None where it cannot be built or
+    loaded."""
+    with _LOCK:
+        if name not in _LOADED:
+            path = _build(src, name, flags)
+            lib = None
+            if path is not None:
+                try:
+                    lib = cls(path)
+                except OSError:
+                    lib = None
+                else:
+                    declare(lib)
+            _LOADED[name] = lib
+        return _LOADED[name]
+
+
+def _declare_bn254(lib):
+    lib.bn254_pairing_check.restype = ctypes.c_int
+    lib.bn254_pairing_check.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
+    ]
+    lib.bn254_pairing.restype = None
+    lib.bn254_pairing.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint64),
+    ]
+    lib.keccak256.restype = None
+    lib.keccak256.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_uint8),
+    ]
+
+
 def get_lib() -> Optional[ctypes.CDLL]:
     """The loaded native library, or None (pure-Python fallback)."""
-    global _LIB, _TRIED
-    with _LOCK:
-        if _TRIED:
-            return _LIB
-        _TRIED = True
-        path = _build()
-        if path is None:
-            return None
-        try:
-            lib = ctypes.CDLL(path)
-        except OSError:
-            return None
-        lib.bn254_pairing_check.restype = ctypes.c_int
-        lib.bn254_pairing_check.argtypes = [
-            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
-        ]
-        lib.bn254_pairing.restype = None
-        lib.bn254_pairing.argtypes = [
-            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
-            ctypes.POINTER(ctypes.c_uint64),
-        ]
-        lib.keccak256.restype = None
-        lib.keccak256.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_uint8),
-        ]
-        _LIB = lib
-        return _LIB
+    return _load("libhalo2native", _SRC, (), ctypes.CDLL, _declare_bn254)
+
+
+def _declare_encode(lib):
+    lib.h2_encode_words.restype = ctypes.c_int
+    lib.h2_encode_words.argtypes = [
+        ctypes.py_object, ctypes.c_ssize_t, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_uint64),
+    ]
+
+
+def encode_lib(flags: Sequence[str] = ()) -> Optional[ctypes.PyDLL]:
+    """The column encoder's library (`src/encode.cpp`), loaded with
+    `ctypes.PyDLL` so that its calls hold the interpreter lock, or None
+    (the callers' `to_bytes` fallback).  `flags` are extra g++ flags:
+    `("-DH2_ENCODE_API",)` builds the form that reads ints through the C
+    API, which a build on CPython 3.12 and 3.13 does not use."""
+    name = "libhalo2encode" + "".join(
+        f.replace("-D", "_").lower() for f in flags)
+    if name in _LOADED:     # no sysconfig lookup on a call per value
+        return _LOADED[name]
+    return _load(name, _ENCODE_SRC,
+                 ("-I" + sysconfig.get_paths()["include"], *flags),
+                 ctypes.PyDLL, _declare_encode)
+
+
+def encode_words(vals: list, rows: int, addr: int,
+                 p: Optional[int] = None) -> bool:
+    """The first `rows` items of the list `vals`, each reduced mod `p`
+    unless p is None, as (rows, 8) int32 little-endian words at `addr`,
+    in one native pass.  False, with the buffer partly written, where the
+    library is absent or an item is not an int in [0, 2^256): the caller
+    then serializes `vals` itself.  The caller vouches for `addr`: rows
+    x 32 writable bytes."""
+    lib = encode_lib()
+    if lib is None:
+        return False
+    mod = None if p is None else (ctypes.c_uint64 * 4)(*_to_words(p))
+    return lib.h2_encode_words(vals, rows, addr, mod) == 0
 
 
 def _to_words(x: int, n: int = 4) -> List[int]:

@@ -17,9 +17,11 @@ and its children split it, so a child's seconds are part of its parent's.
                    device-to-host reads (the copy included)
   encode_narrow    elements the column encoder (`Field.encode_ints_cols`)
                    sent as 64-bit words: columns of values in [0, 2^64)
-  encode_wide      elements it reduced and serialized value by value:
-                   other columns, and a prover's blinding rows
-                   (`fields.field.encode_counters()`)
+  encode_wide      elements it reduced into 32-byte words: other
+                   columns, and a prover's blinding rows
+  encode_native    those of the wide elements that the native pass wrote
+                   (`native/src/encode.cpp`), the rest value by value
+                   through `int.to_bytes` (`fields.field.encode_counters()`)
 
 Code that knows a count of its own adds it with `Trace.count`, to a kept
 record only; it is in the records of the proofs that make it:
@@ -94,7 +96,7 @@ LINES = {
 }
 
 COUNTERS = ("kernel_launches", "msm_streamed", "msm_added", "host_wait",
-            "encode_narrow", "encode_wide")
+            "encode_narrow", "encode_wide", "encode_native")
 
 _HOST_WAIT = [0.0]      # seconds in _sync and to_host since import
 _RANGES = [0]           # depth of profiler_ranges()
@@ -142,7 +144,7 @@ def _counters() -> dict:
     return {"kernel_launches": sum(_build.launch_counts().values()),
             "msm_streamed": msm["streamed"], "msm_added": msm["added"],
             "host_wait": _HOST_WAIT[0], "encode_narrow": enc["narrow"],
-            "encode_wide": enc["wide"]}
+            "encode_wide": enc["wide"], "encode_native": enc["native"]}
 
 
 def current() -> "Trace":

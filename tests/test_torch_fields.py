@@ -11,6 +11,7 @@ import torch
 from halo2_tpu.fields import (BN254_FQ as REF_FQ, BN254_FR as REF_FR,
                               PASTA_FP as REF_PASTA_FP,
                               PASTA_FQ as REF_PASTA_FQ)
+from halo2_tpu_torch import native
 from halo2_tpu_torch.compat.from_jax import limbs_from_jax, limbs_to_jax
 from halo2_tpu_torch.fields import (BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ,
                                     cuda_ops, field)
@@ -148,6 +149,125 @@ def test_encode_ints_cols_words_and_paths(case):
             len(cols), n, 8)
     assert ours.shape == want.shape and ours.dtype == torch.int32
     assert torch.equal(ours, want)
+
+
+def _bytes_words(vals) -> torch.Tensor:
+    """(n, 8) int32 words of ints in [0, 2^256) by `int.to_bytes`, the
+    column encoder's Python serialization."""
+    buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
+    return torch.from_numpy(np.frombuffer(buf, dtype="<u4").view(
+        np.int32).reshape(-1, 8).copy())
+
+
+@pytest.fixture(params=["digits", "api"])
+def encoder(request, monkeypatch):
+    """The native encoder as built for this interpreter ("digits": on
+    CPython 3.12 and 3.13, a direct read of an int's digits) and as built
+    to read ints through the C API; either must build here."""
+    if request.param == "api":
+        lib = native.encode_lib(("-DH2_ENCODE_API",))
+        monkeypatch.setattr(native, "encode_lib", lambda: lib)
+    assert native.encode_lib() is not None
+    return request.param
+
+
+def _no_encoder(monkeypatch):
+    monkeypatch.setattr(native, "encode_lib", lambda: None)
+
+
+def _wide_ints(p: int, n: int, seed: int) -> list:
+    """n values uniform over [0, 2^256), led by 0, 1, p - 1, p, 2p and
+    2^256 - 1 (15p + 7 lies above 2^256 for every field here)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    return [0, 1, p - 1, p, 2 * p, (1 << 256) - 1] + [
+        sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in words]
+
+
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_native_words_equal_python_words(name, encoder, monkeypatch):
+    """The native pass reduces values in [0, 2^256) mod p into the words
+    the Python path gives; with no modulus it writes them as they are
+    (`_words_tensor`); 15p + 7, 2^256 and -1 fail the pass and are
+    serialized (reduced) in Python, to the same words either way."""
+    F, _ = FIELDS[name]
+    p = F.p
+    vals = _wide_ints(p, 200, seed=11)
+    out = torch.empty((len(vals), 8), dtype=torch.int32)
+    assert field._write_words(vals, len(vals), out, p)
+    assert torch.equal(out, _bytes_words([v % p for v in vals]))
+    assert torch.equal(field._words_tensor(vals, "cpu"), _bytes_words(vals))
+    assert 15 * p + 7 >= 1 << 256
+    for bad in (15 * p + 7, 1 << 256, -1):
+        col = vals[:5] + [bad]
+        out = torch.empty((6, 8), dtype=torch.int32)
+        assert not field._write_words(col, 6, out, p)
+        assert torch.equal(out, _bytes_words([v % p for v in col]))
+    _no_encoder(monkeypatch)
+    out = torch.empty((len(vals), 8), dtype=torch.int32)
+    assert not field._write_words(vals, len(vals), out, p)
+    assert torch.equal(out, _bytes_words([v % p for v in vals]))
+
+
+def _native_case(F, case: str):
+    """(columns, tail, elements the native pass should write) of
+    `encode_ints_cols` on 16 rows: full-width columns, and a column the
+    pass refuses for one value (it then goes value by value)."""
+    p = F.p
+    full = [_wide_ints(p, 10, seed=20 + j) for j in range(3)]
+    small = [(i * 7919) % (1 << 16) for i in range(16)]
+
+    def with_value(v, at=9):
+        col = list(full[0])
+        col[at] = v
+        return col
+    tail = [[v % p for v in _wide_ints(p, 0, seed=0)] for _ in range(3)]
+    return {
+        "full_width": (full, None, 48),
+        "with_narrow": ([full[0], small, full[1]], None, 32),
+        "above_2_256": ([with_value(15 * p + 7), full[1]], None, 16),
+        "two_to_256": ([full[1], with_value(1 << 256)], None, 16),
+        "negative": ([with_value(-1), full[2]], None, 16),
+        "numpy_int": ([with_value(np.int64(5)), full[2]], None, 16),
+        "bool": ([with_value(True), full[2]], None, 32),
+        "tail": (full, tail, 48),
+        "tail_refused": (full, [tail[0], tail[1][:5] + [-3], tail[2]], 42),
+        "tail_only": (list(tail), tail, 18),
+        "one_row": ([[p + 3], [2]], None, 1),
+        "no_columns": ([], None, 0),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["full_width", "with_narrow",
+                                  "above_2_256", "two_to_256", "negative",
+                                  "numpy_int", "bool", "tail",
+                                  "tail_refused", "tail_only", "one_row",
+                                  "no_columns"])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_encode_ints_cols_native_and_python_agree(name, case, monkeypatch):
+    """`encode_ints_cols` gives the same words with the native pass and
+    with the library absent, equal to each value reduced and serialized;
+    `encode_native` grows by the wide and tail elements the pass wrote,
+    and by nothing without it."""
+    F, _ = FIELDS[name]
+    cols, tail, native_elems = _native_case(F, case)
+    n = len(cols[0]) if cols else 0
+    full = [c[:n - len(t)] + t for c, t in zip(cols, tail)] if tail \
+        else cols
+    want = F.to_mont(_bytes_words(
+        [int(v) % F.p for col in full for v in col])).reshape(
+            len(cols), n, 8)
+    got = []
+    for present in (True, False):
+        if not present:
+            _no_encoder(monkeypatch)
+        before = field.encode_counters()
+        got.append(F.encode_ints_cols(cols, "cpu", tail=tail))
+        after = field.encode_counters()
+        grew = after["native"] - before["native"]
+        assert grew == (native_elems if present else 0), present
+        assert after["wide"] - before["wide"] >= grew
+    assert torch.equal(got[0], want) and torch.equal(got[1], want)
 
 
 def test_unary_ops_and_inverses():

@@ -65,7 +65,8 @@ def _ints(p: int, n: int, seed: int) -> list:
 
 def test_column_encoder_matches_cpu(cuda):
     """`encode_ints_cols` on the card (64-bit columns in one pinned copy, a
-    wide column, a tail of drawn rows) equals the CPU's words; two calls
+    wide column, a full-width one, both staged in pinned memory by the
+    native pass, a tail of drawn rows) equals the CPU's words; two calls
     back to back, so a reused pinned block would show."""
     F = BN254_FR
     n, rng = 1 << 16, random.Random(5)
@@ -73,6 +74,7 @@ def test_column_encoder_matches_cpu(cuda):
     for _ in range(2):
         cols = [[rng.randrange(1 << 33) for _ in range(n)] for _ in range(4)]
         cols[2][n // 3] = F.p + 5
+        cols[3] = [rng.randrange(1 << 256) for _ in range(n)]
         tail = [[rng.randrange(F.p) for _ in range(6)] for _ in cols]
         calls.append((cols, tail, F.encode_ints_cols(cols, cuda, tail=tail)))
     for cols, tail, got in calls:

@@ -18,7 +18,7 @@ from halo2_tpu.commit.ipa import ParamsIPA as RefParamsIPA
 from halo2_tpu.compat.plonk_api import plonk_api_instance
 from halo2_tpu.curves.constants import VESTA as REF_VESTA
 from halo2_tpu.fields.constants import PASTA_FP as REF_F
-from halo2_tpu_torch import api
+from halo2_tpu_torch import api, native
 from halo2_tpu_torch.commit import ParamsIPA
 from halo2_tpu_torch.compat import plonk_api
 from halo2_tpu_torch.compat.from_jax import params_ipa_from_jax
@@ -87,6 +87,19 @@ def test_pinned_vk_matches_rust_golden(port):
 
 def test_proof_bytes_identical(ref, port):
     assert port[2] == ref[2]
+
+
+def test_proof_bytes_equal_without_the_native_encoder(port, monkeypatch):
+    """The 32-byte elements (a column of full-width values, the blinding
+    rows) through the native encoder and, without the library, value by
+    value: the same proof."""
+    params, pk, proof, inst = port
+    circuit, _ = plonk_api.plonk_api_instance(F)
+    monkeypatch.setattr(native, "encode_lib", lambda: None)
+    record = {}
+    assert api.create_proof(params, pk, [circuit], [inst], random.Random(1),
+                            timings=record) == proof
+    assert record["encode_wide"] > 0 and record["encode_native"] == 0
 
 
 def test_each_package_verifies_the_other(ref, port):

@@ -20,7 +20,7 @@ from halo2_tpu.commit import ProverGWC as RefProverGWC
 from halo2_tpu.fields import BN254_FR as REF_F
 from halo2_tpu.frontend import SimpleFloorPlanner as RefFloorPlanner
 from halo2_tpu.transcript import Keccak256Write as RefKeccak256Write
-from halo2_tpu_torch import api, trace
+from halo2_tpu_torch import api, native, trace
 from halo2_tpu_torch.commit import ProverGWC
 from halo2_tpu_torch.curves import BN254_G1
 from halo2_tpu_torch.fields import BN254_FR as F
@@ -322,6 +322,22 @@ def test_proof_bytes_equal_the_jax_packages(cases):
 
 
 # -- the GWC spans and counter -------------------------------------------
+
+def test_proof_bytes_equal_without_the_native_encoder(cases, monkeypatch):
+    """Every advice value is full-width: with the native encoder each goes
+    through it, and without the library value by value, to the same
+    proof bytes."""
+    proofs = []
+    for present in (True, False):
+        if not present:
+            monkeypatch.setattr(native, "encode_lib", lambda: None)
+        record = {}
+        proofs.append(cases[6].prove(3, timings=record))
+        wide = 3 * cases[6].pk.vk.domain.n      # a, b, c, tails included
+        assert record["encode_wide"] == wide
+        assert record["encode_native"] == (wide if present else 0)
+    assert proofs[0] == proofs[1]
+
 
 def test_gwc_spans_nest_in_the_opening_and_count_its_points(cases):
     case = cases[6]

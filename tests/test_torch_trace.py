@@ -40,7 +40,7 @@ STEPS = ["instances [T1-2]", T34, "lookup_permute [T5-6]", T911,
          "vanishing_random [T12]", "evaluate_h [T13]", "h_pieces [T14]",
          "evals [T15-23]", "multiopen [T24+]"]
 COUNTERS = ["kernel_launches", "msm_streamed", "msm_added", "host_wait",
-            "encode_narrow", "encode_wide"]
+            "encode_narrow", "encode_wide", "encode_native"]
 
 
 def _keys(device):
@@ -106,7 +106,7 @@ def ranged(keys):
 
 
 def test_record_holds_every_span_and_counter(recorded):
-    """Every step and part the record names, and the six counters; the
+    """Every step and part the record names, and the seven counters; the
     parts of T3-4 and of T9-11 within their steps."""
     _, record, _, _ = recorded
     want = STEPS + T34_PARTS + T911_PARTS + COUNTERS
@@ -131,7 +131,7 @@ def test_msm_counters_are_the_stream_counters_growth(recorded):
 def test_encode_counters_count_the_proofs_columns(keys, recorded):
     """The instance and the witness rows of every advice column go to the
     device as 64-bit words (16-bit values and their sums), the drawn
-    blinding rows value by value."""
+    blinding rows as 32-byte words, all of them in the native pass."""
     _, record, _, _ = recorded
     pk = keys[1]
     cs = pk.vk.cs.cs
@@ -140,6 +140,7 @@ def test_encode_counters_count_the_proofs_columns(keys, recorded):
     assert record["encode_narrow"] == \
         na * (n - bf - 1) + cs.num_instance_columns * n
     assert record["encode_wide"] == na * (bf + 1)
+    assert record["encode_native"] == record["encode_wide"]
 
 
 def test_a_record_accumulates_over_proofs(keys, recorded):

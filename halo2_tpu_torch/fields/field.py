@@ -8,8 +8,8 @@ u16-limbs packed two per word (`compat/from_jax.py` converts).
 Every operation is elementwise over arbitrary leading dimensions and runs
 where its input lies: add / sub / mul go through kernel A
 (`fields/cuda_ops.py`), everything else is composed from them.  Tensors are
-created on the device the caller names; constants are built on the CPU and
-moved with `.to(device)` once per device.
+created on the device the caller names.  Python ints reach it through
+`_stage` alone, in copies that do not wait; constants once per device.
 """
 
 from __future__ import annotations
@@ -27,12 +27,12 @@ from .cuda_ops import ADD, MUL, NWORDS, SUB
 INV_BLOCK = 16      # rows per level of the blocked batch inversion
 
 
-def _write_words(vals, rows: int, out: torch.Tensor, p: int = None) -> bool:
-    """The first `rows` of `vals`, each reduced mod `p` unless p is None,
-    as words into `out`, a (rows, 8) int32 CPU tensor: in one native pass
+def _write_words(vals, rows: int, out: torch.Tensor, p: int) -> bool:
+    """The first `rows` of `vals`, each reduced mod `p`, as words into
+    `out`, a (rows, 8) int32 CPU tensor: in one native pass
     (`native.encode_words`) where the host library loads, `vals` is a list
     and each value an int in [0, 2^256); else value by value through
-    `int.to_bytes`.  True where the native pass wrote them."""
+    `cuda_ops.words`.  True where the native pass wrote them."""
     if (out.dtype != torch.int32 or out.device.type != "cpu"
             or tuple(out.shape) != (rows, NWORDS)
             or not out.is_contiguous()):
@@ -40,20 +40,63 @@ def _write_words(vals, rows: int, out: torch.Tensor, p: int = None) -> bool:
                          "int32 CPU tensor")
     if native.encode_words(vals, rows, out.data_ptr(), p):
         return True
-    vals = itertools.islice(vals, rows)
-    if p is not None:
-        vals = [int(v) % p for v in vals]
-    buf = b"".join(int(v).to_bytes(32, "little") for v in vals)
-    out.numpy()[:] = np.frombuffer(buf, dtype="<u4").view(
-        np.int32).reshape(rows, NWORDS)
+    vals = [int(v) % p for v in itertools.islice(vals, rows)]
+    out.copy_(cuda_ops.words(vals, out.shape))
     return False
 
 
-def _words_tensor(vals: list, device) -> torch.Tensor:
-    """python ints < 2^256 -> (n, 8) int32 words (no Montgomery map)."""
-    host = torch.empty((len(vals), NWORDS), dtype=torch.int32)
-    _write_words(vals, len(vals), host)
-    return host.to(device)
+def staging(shape, device) -> torch.Tensor:
+    """An empty int32 host tensor for words bound for `device`, to copy
+    from with `non_blocking=True`: pinned where `device` is a card, so
+    that the copy does not wait.  PyTorch keeps a pinned block from reuse
+    until the copies from it have run; nothing may write the tensor once
+    a copy from it is queued."""
+    return torch.empty(shape, dtype=torch.int32,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
+def _stage(cols, p: int, device, tail=None):
+    """m equal-length columns of python ints -> their raw words (no
+    Montgomery map), one (m, n, 8) int32 tensor on `device`; and the
+    elements that went as 64-bit words, as 32-byte words, and of those
+    the ones the native pass wrote.
+
+    A column whose values all lie in [0, 2^64), and so below p, goes as
+    64-bit words, all such columns in one copy; any other column is
+    reduced mod p into 32-byte words (`_write_words`), a copy a column.
+    `tail`, m lists of t values, replaces each column's last t rows in
+    32-byte words, in one copy; the columns' own last t values are not
+    read.  Every copy is from a `staging` buffer."""
+    m, n = len(cols), len(cols[0])
+    t = len(tail[0]) if tail else 0
+    rows = n - t
+    narrow = staging((m, rows, 2), device)
+    u64 = narrow.numpy().view(np.uint64).reshape(m, rows)
+    wide = []
+    for j, col in enumerate(cols):
+        try:
+            u64[j] = np.fromiter(col, dtype=np.uint64, count=rows)
+        except OverflowError:
+            wide.append(j)
+    alloc = torch.zeros if len(wide) < m else torch.empty
+    words = alloc((m, n, NWORDS), dtype=torch.int32, device=device)
+    if len(wide) < m:
+        # through a temporary on the device, freed before the caller's
+        # Montgomery map: no higher peak
+        words[:, :rows, :2].copy_(narrow, non_blocking=True)
+    native_elems = 0
+    if wide:
+        host = staging((len(wide), rows, NWORDS), device)
+        for i, j in enumerate(wide):
+            native_elems += rows * _write_words(cols[j], rows, host[i], p)
+            words[j, :rows].copy_(host[i], non_blocking=True)
+    if t:
+        host = staging((m, t, NWORDS), device)
+        for j, col in enumerate(tail):
+            native_elems += t * _write_words(col, t, host[j], p)
+        words[:, rows:].copy_(host, non_blocking=True)
+    return words, ((m - len(wide)) * rows, len(wide) * rows + m * t,
+                   native_elems)
 
 
 # Elements of every `Field.encode_ints_cols` since import: through 64-bit
@@ -65,25 +108,6 @@ _ENCODED = dict(narrow=0, wide=0, native=0)
 def encode_counters() -> dict:
     """Elements the column encoder took through each path so far."""
     return dict(_ENCODED)
-
-
-def _narrow_words(cols, rows: int, device: torch.device):
-    """The first `rows` values of each column as (m, rows, 2) int32 words
-    on `device` (a value's low and high half), in one copy, from pinned
-    memory to a card; and the indices of the columns holding a value
-    outside [0, 2^64), whose rows there are undefined."""
-    pin = device.type == "cuda"
-    host = torch.empty((len(cols), rows, 2), dtype=torch.int32,
-                       pin_memory=pin)
-    u64 = host.numpy().view(np.uint64).reshape(len(cols), rows)
-    wide = []
-    for j, col in enumerate(cols):
-        try:
-            u64[j] = np.fromiter(col, dtype=np.uint64, count=rows)
-        except OverflowError:
-            wide.append(j)
-    # PyTorch keeps a pinned block from reuse until its copy has run
-    return host.to(device, non_blocking=pin), wide
 
 
 class Field:
@@ -133,8 +157,8 @@ class Field:
         c = self._consts.get(ck)
         if c is None:
             val = {"one": self.R, "r2": self.R2, "canon_one": 1}[key]
-            c = self._consts[ck] = _words_tensor([val], device).reshape(
-                NWORDS)
+            c = self._consts[ck] = _stage([[val]], self.p,
+                                          device)[0].reshape(NWORDS)
         return c
 
     # ------------------------------------------------------------------
@@ -148,69 +172,36 @@ class Field:
         return (x * self.R_inv) % self.p
 
     def encode_ints(self, xs, device) -> torch.Tensor:
-        """Canonical python ints -> (n, 8) Montgomery words on `device`
-        (bytes on the host, the Montgomery map on the device)."""
-        vals = [int(x) % self.p for x in np.asarray(xs, dtype=object).ravel()]
+        """Python ints, any shape -> (n, 8) Montgomery words on `device`:
+        one column through `_stage`, then the Montgomery map."""
+        vals = [int(x) for x in np.asarray(xs, dtype=object).ravel()]
         if not vals:
             return torch.zeros((0, NWORDS), dtype=torch.int32, device=device)
-        return self.to_mont(_words_tensor(vals, device))
+        return self.to_mont(_stage([vals], self.p, device)[0][0])
 
     def encode_ints_cols(self, cols, device, tail=None) -> torch.Tensor:
-        """m equal-length columns of python ints -> (m, n, 8), one
-        to-Montgomery dispatch.
-
-        A column whose values all lie in [0, 2^64), and so below p, goes
-        to the device as 64-bit words, all such columns in one copy; any
-        other column is reduced mod p into 32-byte words, in one native
-        pass where it can be (`_write_words`), and copied from one pinned
-        staging buffer, a copy a column.  `tail`, m lists of t values,
-        replaces each column's last t rows (a prover's blinding rows) in
-        32-byte words the same way; the columns' own last t values are
-        not read."""
-        m = len(cols)
-        if m == 0:
+        """m equal-length columns of python ints -> (m, n, 8) through
+        `_stage` (`tail`: a prover's blinding rows), one to-Montgomery
+        dispatch.  The one entry that counts its elements by path
+        (`encode_counters`)."""
+        if not cols:
             return torch.zeros((0, 0, NWORDS), dtype=torch.int32,
                                device=device)
-        device = torch.device(device)
-        pin = device.type == "cuda"
-        n = len(cols[0])
-        t = len(tail[0]) if tail else 0
-        rows = n - t
-        p = self.p
-        words = torch.zeros((m, n, NWORDS), dtype=torch.int32, device=device)
-        narrow, wide = _narrow_words(cols, rows, device)
-        words[:, :rows, :2] = narrow
-        del narrow      # before the Montgomery map: no higher peak
-        native_elems = 0
-        if wide:
-            # PyTorch keeps a pinned block from reuse until its copies ran
-            host = torch.empty((len(wide), rows, NWORDS), dtype=torch.int32,
-                               pin_memory=pin)
-            for i, j in enumerate(wide):
-                native_elems += rows * _write_words(cols[j], rows, host[i], p)
-                words[j, :rows].copy_(host[i], non_blocking=pin)
-        if t:
-            host = torch.empty((m, t, NWORDS), dtype=torch.int32,
-                               pin_memory=pin)
-            for j, col in enumerate(tail):
-                native_elems += t * _write_words(col, t, host[j], p)
-            words[:, rows:] = host.to(device, non_blocking=pin)
-        _ENCODED["narrow"] += (m - len(wide)) * rows
-        _ENCODED["wide"] += len(wide) * rows + m * t
-        _ENCODED["native"] += native_elems
+        words, counts = _stage(cols, self.p, device, tail)
+        for key, c in zip(("narrow", "wide", "native"), counts):
+            _ENCODED[key] += c
         return self.to_mont(words)
 
     def encode_int(self, x: int, device) -> torch.Tensor:
-        return _words_tensor([self.to_mont_int(int(x) % self.p)],
-                             device).reshape(NWORDS)
+        """A python int -> (8,) Montgomery words on `device`, the map on
+        the host."""
+        return _stage([[self.to_mont_int(int(x))]], self.p,
+                      device)[0].reshape(NWORDS)
 
     def words_to_ints(self, arr) -> list:
         """Raw (..., 8) words -> python ints (no Montgomery map); from a
         card, one read that waits for it (`trace.to_host`)."""
-        a = to_host(arr.detach()).contiguous().numpy().astype(np.int32)
-        buf = a.view("<u4").tobytes()
-        return [int.from_bytes(buf[i:i + 32], "little")
-                for i in range(0, len(buf), 32)]
+        return cuda_ops.ints(to_host(arr.detach()))
 
     def decode_ints(self, arr) -> list:
         """Montgomery (..., 8) -> canonical python ints (flattened)."""

@@ -21,7 +21,7 @@ import torch
 
 from ..commit.base import Blind, PolyRef, ProverQuery
 from ..commit.kzg import PreMSM
-from ..fields.field import NWORDS, Field
+from ..fields.field import NWORDS, Field, staging
 from ..frontend.expression import ADVICE, FIXED, INSTANCE, Rotation
 from ..ntt import powers
 from ..poly.arith import eval_polys_at_points, prefix_product
@@ -55,15 +55,14 @@ def _random_poly(F: Field, n: int, rng, device):
     (prover.py:43-57); value = hi * 2^192 + lo."""
     g = np.random.Generator(np.random.PCG64(rng.getrandbits(64)))
     raw = g.integers(0, 1 << 16, size=(n, 24), dtype=np.uint32)
-
-    def words(limbs):                 # (n, 12) u16 -> (n, 8) int32 words
-        w = np.zeros((n, NWORDS), np.uint32)
-        w[:, :6] = limbs[:, 0::2] | (limbs[:, 1::2] << 16)
-        return torch.from_numpy(w.view(np.int32).copy()).to(device)
-
+    host = staging((2, n, NWORDS), device)      # hi, lo words
+    w = host.numpy().view(np.uint32)
+    w[:, :, 6:] = 0
+    for half, limbs in enumerate((raw[:, 12:], raw[:, :12])):
+        w[half, :, :6] = limbs[:, 0::2] | (limbs[:, 1::2] << 16)
     c192 = F.encode_int(pow(2, 192, F.p), device)
-    return F.add(F.mul(F.to_mont(words(raw[:, 12:])), c192),
-                 F.to_mont(words(raw[:, :12])))
+    hi = F.mul(F.to_mont(host[0].to(device, non_blocking=True)), c192)
+    return F.add(hi, F.to_mont(host[1].to(device, non_blocking=True)))
 
 
 class Evaluator:

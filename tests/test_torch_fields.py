@@ -4,6 +4,8 @@ sides of the plain versions' selection rule (`cuda_ops.on_ints`: python
 ints for small CPU batches, int64 limbs otherwise).  All arithmetic is
 exact, so every comparison is equality (tolerance 0)."""
 
+import random
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from halo2_tpu_torch import native
 from halo2_tpu_torch.compat.from_jax import limbs_from_jax, limbs_to_jax
 from halo2_tpu_torch.fields import (BN254_FQ, BN254_FR, PASTA_FP, PASTA_FQ,
                                     cuda_ops, field)
+from halo2_tpu_torch.plonk import prover
 
 # The plain versions run many small tensor ops: one thread per worker
 # is as fast and leaves the other cores to the other test workers.
@@ -144,9 +147,8 @@ def test_encode_ints_cols_words_and_paths(case):
     if tail:
         cols = [c[:len(c) - len(t)] + t for c, t in zip(cols, tail)]
     n = len(cols[0]) if cols else 0
-    want = F.to_mont(field._words_tensor(
-        [v % F.p for col in cols for v in col], "cpu")).reshape(
-            len(cols), n, 8)
+    want = F.to_mont(_bytes_words(
+        [v % F.p for col in cols for v in col])).reshape(len(cols), n, 8)
     assert ours.shape == want.shape and ours.dtype == torch.int32
     assert torch.equal(ours, want)
 
@@ -187,16 +189,20 @@ def _wide_ints(p: int, n: int, seed: int) -> list:
 @pytest.mark.parametrize("name", sorted(FIELDS))
 def test_native_words_equal_python_words(name, encoder, monkeypatch):
     """The native pass reduces values in [0, 2^256) mod p into the words
-    the Python path gives; with no modulus it writes them as they are
-    (`_words_tensor`); 15p + 7, 2^256 and -1 fail the pass and are
-    serialized (reduced) in Python, to the same words either way."""
+    the Python path gives, and so does the staging routine (`_stage`);
+    with no modulus it writes them as they are; 15p + 7, 2^256 and -1
+    fail the pass and are serialized (reduced) in Python, to the same
+    words either way."""
     F, _ = FIELDS[name]
     p = F.p
     vals = _wide_ints(p, 200, seed=11)
     out = torch.empty((len(vals), 8), dtype=torch.int32)
     assert field._write_words(vals, len(vals), out, p)
     assert torch.equal(out, _bytes_words([v % p for v in vals]))
-    assert torch.equal(field._words_tensor(vals, "cpu"), _bytes_words(vals))
+    words, counts = field._stage([vals], p, "cpu")
+    assert torch.equal(words[0], out) and counts == (0, 206, 206)
+    assert native.encode_words(vals, len(vals), out.data_ptr())
+    assert torch.equal(out, _bytes_words(vals))
     assert 15 * p + 7 >= 1 << 256
     for bad in (15 * p + 7, 1 << 256, -1):
         col = vals[:5] + [bad]
@@ -268,6 +274,73 @@ def test_encode_ints_cols_native_and_python_agree(name, case, monkeypatch):
         assert grew == (native_elems if present else 0), present
         assert after["wide"] - before["wide"] >= grew
     assert torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
+def _every_route_values(p: int) -> list:
+    """Values each host-to-device route must reduce and serialize alike:
+    canonical, at and above p, on both sides of 2^64 and of 2^256, and
+    negative."""
+    return [0, 1, p - 1, p, 15 * p + 7, (1 << 64) - 1, 1 << 64,
+            (1 << 256) - 1, -1]
+
+
+@pytest.mark.parametrize("route", ["encode_int", "encode_ints",
+                                   "encode_ints_cols", "random_poly"])
+@pytest.mark.parametrize("present", [True, False], ids=["native", "python"])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_every_route_stages_the_same_words(name, present, route,
+                                           monkeypatch):
+    """Every host-to-device route of field elements gives the words of
+    `int.to_bytes` of each value mod p, then the Montgomery map, with the
+    native pass and without it.  `encode_ints` also takes a numpy int
+    (np.int64(-3), which the 64-bit path alone would wrap) and a value at
+    a time (the 64-bit path); `encode_int` maps on the host, no kernel-A
+    call; `_random_poly`'s staged words are its hi and lo values."""
+    F, _ = FIELDS[name]
+    p = F.p
+    if not present:
+        _no_encoder(monkeypatch)
+    vals = _every_route_values(p)
+
+    def want(xs):
+        return F.to_mont(_bytes_words([int(x) % p for x in xs]))
+
+    if route == "encode_int":
+        calls = []
+        real = cuda_ops.binop
+        monkeypatch.setattr(cuda_ops, "binop",
+                            lambda *a: calls.append(a) or real(*a))
+        got = torch.stack([F.encode_int(v, "cpu") for v in vals])
+        assert not calls
+        assert torch.equal(got, want(vals))
+    elif route == "encode_ints":
+        xs = vals + [np.int64(-3)]
+        assert torch.equal(F.encode_ints(xs, "cpu"), want(xs))
+        for x in xs:
+            assert torch.equal(F.encode_ints([x], "cpu"), want([x])), x
+    elif route == "encode_ints_cols":
+        cols = [[v] * 3 for v in vals]
+        assert torch.equal(F.encode_ints_cols(cols, "cpu"),
+                           want(vals).repeat_interleave(3, 0).reshape(
+                               len(vals), 3, 8))
+    else:
+        n, seed = 9, 5
+        g = np.random.Generator(np.random.PCG64(
+            random.Random(seed).getrandbits(64)))
+        raw = g.integers(0, 1 << 16, size=(n, 24), dtype=np.uint32)
+        halves = [[sum(int(r[off + i]) << (16 * i) for i in range(12))
+                   for r in raw] for off in (12, 0)]
+        staged = []
+        monkeypatch.setattr(prover, "staging", lambda *a: staged.append(
+            field.staging(*a)) or staged[-1])
+        got = prover._random_poly(F, n, random.Random(seed), "cpu")
+        assert torch.equal(staged[0][0], _bytes_words(halves[0]))
+        assert torch.equal(staged[0][1], _bytes_words(halves[1]))
+        c192 = F.encode_int(1 << 192, "cpu")
+        assert torch.equal(got, F.add(F.mul(want(halves[0]), c192),
+                                      want(halves[1])))
+        assert F.decode_ints(got) == [(hi << 192 | lo) % p
+                                      for hi, lo in zip(*halves)]
 
 
 def test_unary_ops_and_inverses():

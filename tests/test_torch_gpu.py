@@ -67,7 +67,8 @@ def test_column_encoder_matches_cpu(cuda):
     """`encode_ints_cols` on the card (64-bit columns in one pinned copy, a
     wide column, a full-width one, both staged in pinned memory by the
     native pass, a tail of drawn rows) equals the CPU's words; two calls
-    back to back, so a reused pinned block would show."""
+    back to back, so a reused pinned block would show.  So do
+    `encode_ints`, `encode_int` and the prover's `_random_poly`."""
     F = BN254_FR
     n, rng = 1 << 16, random.Random(5)
     calls = []
@@ -80,6 +81,17 @@ def test_column_encoder_matches_cpu(cuda):
     for cols, tail, got in calls:
         assert torch.equal(got.cpu(), F.encode_ints_cols(cols, "cpu",
                                                          tail=tail))
+    # the other routes through the same staging: values and constants,
+    # and the vanishing argument's random polynomial
+    from halo2_tpu_torch.plonk.prover import _random_poly
+    vals = [0, 1, F.p - 1, F.p, (1 << 64) - 1, 1 << 64, -1]
+    assert torch.equal(F.encode_ints(vals, cuda).cpu(),
+                       F.encode_ints(vals, "cpu"))
+    assert torch.equal(
+        torch.stack([F.encode_int(v, cuda) for v in vals]).cpu(),
+        torch.stack([F.encode_int(v, "cpu") for v in vals]))
+    assert torch.equal(_random_poly(F, n, random.Random(9), cuda).cpu(),
+                       _random_poly(F, n, random.Random(9), "cpu"))
 
 
 @pytest.mark.parametrize("F", [BN254_FR, BN254_FQ, PASTA_FP, PASTA_FQ],
